@@ -1,0 +1,506 @@
+"""Smoke run of gan2shape_torch on one NVIDIA GPU (sm_90a, e.g. an H100).
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass:
+  1. the card: name and power limit (nvidia-smi); fails without CUDA;
+  2. build the CUDA kernels from gan2shape_torch/csrc (one nvcc per source,
+     all at once) into build/kernels/;
+  3. hold every kernel against its plain PyTorch version on the card at the
+     main path's shapes, and time the kernel, the plain version and, where
+     one exists, one PyTorch call of the same function (a yardstick only);
+  4. the main path at full width: the face-128 Trainer (image 128, GAN 128,
+     channel_multiplier 1, z 512, 16 pseudo samples, LPIPS-VGG, box prior,
+     seeded random weights) runs `fit` on one random image and latent, with
+     every kernel's launch count zeroed just before and read just after;
+     then a timed block of each step, the instance time it projects, and a
+     torch.profiler window per step (device-busy share, top kernels);
+  5. one JSON line describing every kernel, the card line again, and last
+     {"ok": true, "device": {...}}.
+
+Any failure exits non-zero before the last line.  Kernel builds and run
+outputs stay inside the checkout (build/).
+"""
+
+import json
+import math
+import subprocess
+import sys
+import time
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 op/s
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+FACE128 = {
+    "image_size": 128, "gan_size": 128, "z_dim": 512,
+    "channel_multiplier": 1, "category": "face", "n_proj_samples": 16,
+    "n_epochs_prior": 20, "learning_rate": 1e-4, "prior_name": "box",
+    "rot_center_depth": 1.0, "fov": 10,
+}
+STAGE = {"step1": 5, "step2": 5, "step3": 5}
+TIMED_ITERS = 10
+PROFILED_ITERS = 3
+# the instance schedule of main.py: 1000 prior epochs, then stages
+# {700, 700, 600} + 3 x {200, 500, 400} of step 1, 2, 3
+SCHEDULE = {"prior": 1000, "step1": 1300, "step2": 2200, "step3": 1800}
+VIEWS = [[0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+         [0.12, -0.2, 0.05, 0.02, -0.02, 0.03],
+         [-0.25, 0.3, -0.1, -0.05, 0.04, -0.06],
+         [0.3, 0.15, -0.2, 0.05, 0.05, -0.05]]
+
+KERNELS = {
+    "raster_place": ("gan2shape_torch/csrc/raster.cu",
+                     "gan2shape_tpu/ops/rasterize.py:781"),
+    "raster_tests": ("gan2shape_torch/csrc/raster.cu",
+                     "gan2shape_tpu/ops/rasterize.py:482"),
+    "fetch2x2": ("gan2shape_torch/csrc/window.cu",
+                 "gan2shape_tpu/ops/splat_window.py:126"),
+    "splat2x2": ("gan2shape_torch/csrc/window.cu",
+                 "gan2shape_tpu/ops/splat_window.py:33"),
+}
+
+
+class Failed(Exception):
+    pass
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.stdout.strip() else \
+        "nvidia-smi: " + out.stderr.strip()
+
+
+def cuda_ms(fn, reps=30, warmup=3):
+    """Mean milliseconds per call by CUDA events, after warm-up."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check(cond, what):
+    print(("PASS " if cond else "FAIL ") + what, flush=True)
+    if not cond:
+        raise Failed(what)
+
+
+# ---------------- inputs at the main path's shapes ----------------
+
+
+def training_warp(renderer, b, seed):
+    """Vertices (vx, vy, vz) of smooth depth maps under training-scale
+    views, as the renderer projects them."""
+    import torch
+    import torch.nn.functional as F
+    from gan2shape_torch.rendering.renderer import get_transform_matrices
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = renderer.image_size
+    low = torch.randn(b, 1, s // 8, s // 8, generator=g, device="cuda")
+    depth = 1.0 + 0.08 * torch.tanh(F.interpolate(
+        low, size=(s, s), mode="bicubic", align_corners=False))[:, 0]
+    views = torch.tensor((VIEWS * (b // len(VIEWS) + 1))[:b],
+                         device="cuda")
+    rot, trans = get_transform_matrices(views)
+    pts = renderer.get_warped_3d_grid(depth, rot, trans).reshape(b, -1, 3)
+    xs, ys, zs = renderer._project_screen(pts)
+    return (xs.reshape(b, s, s).contiguous(), ys.reshape(b, s, s).contiguous(),
+            zs.reshape(b, s, s).contiguous())
+
+
+def inside_candidates(bufs, h, w, window, near, far):
+    """How many candidate tests this data covers (they do the depth half of
+    the key arithmetic), by the plain version's own arithmetic."""
+    import torch
+    from gan2shape_torch.ops import rasterize as R
+    pad = window + 1
+    n_faces = (h - 1) * (w - 1)
+    n = 0
+    for parity in range(2):
+        for oy in range(window):
+            for sy in range(2):
+                for ox in range(window):
+                    for sx in range(2):
+                        sl = bufs[parity, :, sy, sx, :, pad - oy:pad - oy + h,
+                                  pad - ox:pad - ox + w].float()
+                        key = R._cand_key_int(*sl.unbind(1), ox, oy, parity,
+                                              n_faces, near, far)
+                        n += int((key != R.SENTINEL).sum())
+    return n
+
+
+# ---------------- phase 3: kernels against plain versions ----------------
+
+
+def check_raster(results):
+    import torch
+    from gan2shape_torch.ops import rasterize as R
+    from gan2shape_torch.rendering.renderer import Renderer
+
+    near, far, window = 0.8, 1.2, 3
+    worst = 0
+    for s, b in ((128, 1), (128, 16), (64, 4)):
+        renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
+        vx, vy, vz = training_warp(renderer, b, seed=s + b)
+        bufs = R.raster_place(vx, vy, vz, window, near, far)
+        key = R.raster_tests(bufs, s, s, window, near, far)
+        torch.cuda.synchronize()
+        covered = float((key != R.SENTINEL).float().mean())
+        # the plain version on the same inputs, on the card and on the CPU
+        for where in ("cuda", "cpu"):
+            v = [t.to(where) for t in (vx, vy, vz)]
+            ref_bufs = R.build_winner_buffers_plain(*v, window, near, far)
+            ref_key = R.dense_winner_plain(ref_bufs, s, s, window, near, far)
+            # the test kernel alone, on the plain version's payloads
+            key_on_ref = R.raster_tests(ref_bufs.cuda(), s, s, window, near,
+                                        far).to(where)
+            buf_eq = bool(torch.equal(bufs.to(where), ref_bufs))
+            agree = float((key.to(where) == ref_key).float().mean())
+            agree_t = float((key_on_ref == ref_key).float().mean())
+            worst = max(worst, int((key.to(where).long() - ref_key.long())
+                                   .abs().max()))
+            check(buf_eq and agree >= 0.9999 and agree_t >= 0.9999
+                  and covered > 0.5,
+                  f"raster {s}px B={b} window {window} vs plain on {where}: "
+                  f"payload buffers equal {buf_eq}, key agreement "
+                  f"{agree:.6f}, tests kernel alone {agree_t:.6f} "
+                  f"(>= 0.9999), covered {covered:.4f}")
+    # timings and bounds at the main path's largest call (B=16, 128 px)
+    s, b = 128, 16
+    renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
+    vx, vy, vz = training_warp(renderer, b, seed=7)
+    bufs = R.raster_place(vx, vy, vz, window, near, far)
+    # inputs read once, outputs written once: the vertex fields in, the
+    # payload buffers out (the collision-key scratch is not counted)
+    buf_bytes = bufs.numel() * 2
+    n_faces = 2 * b * (s - 1) ** 2
+    place_bound = bound_ms(3 * b * s * s * 4 + buf_bytes, n_faces * 60)
+    n_cand = 2 * 4 * window * window * b * s * s
+    n_inside = inside_candidates(bufs, s, s, window, near, far)
+    tests_bound = bound_ms(buf_bytes + b * s * s * 4,
+                           25 * n_cand + 17 * n_inside)
+    timings = {
+        "raster_place": (
+            cuda_ms(lambda: R.raster_place(vx, vy, vz, window, near, far)),
+            cuda_ms(lambda: R.build_winner_buffers_plain(
+                vx, vy, vz, window, near, far), reps=10),
+            place_bound),
+        "raster_tests": (
+            cuda_ms(lambda: R.raster_tests(bufs, s, s, window, near, far)),
+            cuda_ms(lambda: R.dense_winner_plain(bufs, s, s, window, near,
+                                                 far), reps=5),
+            tests_bound),
+    }
+    for name, (ms, plain_ms, (bms, by)) in timings.items():
+        results[name] = {"max_abs_err": float(worst), "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bms,
+                         "bound_by": by, "library_ms": None}
+        print(f"TIME {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({by}), at B={b} {s}px window {window}"
+              f" ({n_inside} of {n_cand} candidates covered)", flush=True)
+
+
+def window_inputs(b, c, s, seed):
+    """Window starts of a smooth warp (pixel + small displacement)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    py = torch.arange(s, device="cuda").reshape(1, s, 1).expand(b, s, s)
+    px = torch.arange(s, device="cuda").reshape(1, 1, s).expand(b, s, s)
+    dy = torch.randint(-2, 3, (b, s, s), generator=g, device="cuda")
+    dx = torch.randint(-2, 3, (b, s, s), generator=g, device="cuda")
+    iy = (py + dy).clamp(0, s - 2).to(torch.int32).reshape(b, -1).contiguous()
+    ix = (px + dx).clamp(0, s - 2).to(torch.int32).reshape(b, -1).contiguous()
+    src = torch.randn(b, c, s, s, generator=g, device="cuda")
+    gr = torch.randn(b, 4 * c, s * s, generator=g, device="cuda")
+    return src, iy, ix, gr
+
+
+def flat_index(iy, ix, b, c, s):
+    """(B, 4C, P) index into src.view(B, C*H*W) for the one-call
+    yardsticks."""
+    import torch
+    ch = torch.arange(c, device="cuda").reshape(1, 1, c, 1) * (s * s)
+    taps = torch.stack([(iy + a) * s + (ix + t) for a in (0, 1)
+                        for t in (0, 1)], 1).long()  # (B, 4, P)
+    return (taps[:, :, None, :] + ch).reshape(b, 4 * c, -1)
+
+
+def check_window(results):
+    import torch
+    from gan2shape_torch.ops import splat_window as W
+
+    worst_fetch, worst_splat = 0.0, 0.0
+    # the main path's (B, C) at 128 px: C=3 vertex fields and textures at
+    # B=1 (steps 1, 3) and B=16 (step 2 pool, step 3), and C=6 at B=16, the
+    # step-2 pseudo-sample render's image with its 3-channel mask in one
+    # fetch; the splat runs at C=3 only (no gradient reaches that render)
+    for b, c in ((1, 3), (16, 3), (16, 6)):
+        s = 128
+        src, iy, ix, gr = window_inputs(b, c, s, seed=b * 10 + c)
+        out = W.fetch2x2(src, iy, ix)
+        ref = W.fetch2x2_plain(src, iy, ix)
+        err = float((out - ref).abs().max())
+        worst_fetch = max(worst_fetch, err)
+        check(err == 0.0, f"fetch2x2 C={c} B={b}: max abs err {err}"
+              " (bit-exact)")
+        d = W.splat2x2(gr, iy, ix, (b, c, s, s))
+        dref = W.splat2x2_plain(gr, iy, ix, (b, c, s, s))
+        err = float((d - dref).abs().max())
+        scale = float(dref.abs().max())
+        # atomics reorder at most a few colliding adds per pixel: a few ulps
+        # of the largest value
+        tol = 4 * torch.finfo(torch.float32).eps * max(scale, 1.0)
+        worst_splat = max(worst_splat, err)
+        check(err <= tol, f"splat2x2 C={c} B={b}: max abs err {err:.3e}"
+              f" at scale {scale:.2f} (<= {tol:.3e})")
+    # timings at each kernel's largest main-path call, B=16 and 128 px: the
+    # fetch at C=6 (image + mask), the splat at C=3
+    b, s = 16, 128
+    for name, c in (("fetch2x2", 6), ("splat2x2", 3)):
+        src, iy, ix, gr = window_inputs(b, c, s, seed=99)
+        idx = flat_index(iy, ix, b, c, s)
+        io_bytes = (b * c * s * s + b * 4 * c * s * s) * 4 + 2 * b * s * s * 4
+        bms, by = bound_ms(io_bytes, b * s * s * 4 * c)
+        if name == "fetch2x2":
+            flat = src.reshape(b, -1)
+            ms = cuda_ms(lambda: W.fetch2x2(src, iy, ix))
+            plain = cuda_ms(lambda: W.fetch2x2_plain(src, iy, ix))
+            lib = cuda_ms(lambda: torch.gather(flat, 1, idx.reshape(b, -1)))
+            err = worst_fetch
+        else:
+            zeros = torch.zeros(b, c * s * s, device="cuda")
+            gflat = gr.reshape(b, -1)
+            ms = cuda_ms(lambda: W.splat2x2(gr, iy, ix, (b, c, s, s)))
+            plain = cuda_ms(lambda: W.splat2x2_plain(gr, iy, ix,
+                                                     (b, c, s, s)))
+            lib = cuda_ms(lambda: torch.scatter_add(
+                zeros, 1, idx.reshape(b, -1), gflat))
+            err = worst_splat
+        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "bound_ms": bms, "bound_by": by, "library_ms": lib}
+        print(f"TIME {name}: {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms, bound {bms:.4f} ms ({by}), at B={b} {s}px "
+              f"C={c}", flush=True)
+
+
+def check_raster_gradients():
+    """rasterize_depth on the card (kernels) against the plain path on the
+    CPU: depth within 1e-5, vertex gradients within 5e-5 relative."""
+    import torch
+    from gan2shape_torch.ops.rasterize import rasterize_depth_grid
+    from gan2shape_torch.rendering.renderer import Renderer
+
+    renderer = Renderer(FACE128, 128, 0.9, 1.1, device="cuda")
+    verts = training_warp(renderer, 16, seed=3)
+    g = torch.randn(verts[0].shape, device="cuda")
+    outs = []
+    for dev in ("cuda", "cpu"):
+        v = [t.detach().to(dev).requires_grad_(True) for t in verts]
+        depth = rasterize_depth_grid(*v, window=3, near=0.8, far=1.2)
+        (depth * g.to(dev)).sum().backward()
+        outs.append((depth.detach().cpu(), [t.grad.cpu() for t in v]))
+    (d_k, g_k), (d_p, g_p) = outs
+    derr = float((d_k - d_p).abs().max())
+    gerr = max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(g_k, g_p))
+    check(derr <= 1e-5 and gerr <= 5e-5,
+          f"rasterize_depth B=16 128px: depth max abs err {derr:.3e} "
+          f"(<= 1e-5), vertex-gradient rel err {gerr:.3e} (<= 5e-5)")
+
+
+# ---------------- phase 4: the main path ----------------
+
+
+def run_main_path():
+    import numpy as np
+    import torch
+    from gan2shape_torch.core.trainer import Trainer
+    from gan2shape_torch.ops import _cuda
+
+    t0 = time.perf_counter()
+    trainer = Trainer(FACE128, seed=0)  # device defaults to CUDA
+    rng = np.random.default_rng(0)
+    image = rng.uniform(-1, 1, (3, 128, 128)).astype(np.float32)
+    latent = rng.standard_normal(512).astype(np.float32)
+    print(f"trainer built in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.fit([(image, latent, 0)], stages=[STAGE])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    print(f"fit (prior {FACE128['n_epochs_prior']} + {STAGE}) in "
+          f"{fit_s:.2f} s; launches {launches}", flush=True)
+    rec = history[0]
+    losses = rec["losses_step1"] + rec["losses_step2"] + rec["losses_step3"]
+    check(len(losses) == sum(STAGE.values())
+          and all(math.isfinite(x) for x in losses),
+          f"fit losses finite: step1 {rec['losses_step1']}, step2 "
+          f"{rec['losses_step2']}, step3 {rec['losses_step3']}")
+    missing = [k for k, v in launches.items() if v == 0]
+    check(not missing, f"every kernel launched on the main path "
+          f"(none missing: {missing})")
+
+    # timed block: each step's iterations alone, with per-step launches
+    img = torch.as_tensor(image, device="cuda")[None]
+    lat = torch.as_tensor(latent, device="cuda")[None]
+    n = TIMED_ITERS
+    per_step = {}
+
+    def timed(name, fn):
+        _cuda.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        per_step[name] = ((time.perf_counter() - t) * 1e3 / n,
+                          dict(_cuda.LAUNCHES))
+        return out
+
+    prior = torch.full((128, 128), 1.0, device="cuda")
+    l0 = timed("prior", lambda: trainer.run_prior(img, prior, n))
+    collected, l1 = timed("step1", lambda: trainer.run_step1(img, n))
+    coll2, l2 = timed("step2", lambda: trainer.run_step2(img, lat, collected,
+                                                         n))
+    l3 = timed("step3", lambda: trainer.run_step3(img, lat, coll2, n))
+    for name, (ms, counts) in per_step.items():
+        print(f"STEP {name}: {ms:.2f} ms/iter over {n} iterations; "
+              f"launches per iteration "
+              f"{ {k: v / n for k, v in counts.items()} }", flush=True)
+    step_ms = sum(per_step[s][0] for s in ("step1", "step2", "step3"))
+    print(f"STEPS/S {3e3 / step_ms:.3f} (step1+2+3 mix, {n} iterations "
+          f"each, face-128, n_proj 16)", flush=True)
+    instance_s = sum(k * per_step[s][0] for s, k in SCHEDULE.items()) / 1e3
+    print(f"INSTANCE {instance_s:.1f} s projected for the face schedule "
+          f"{SCHEDULE} from these per-iteration times", flush=True)
+    check(all(math.isfinite(float(x)) for x in l0 + l1 + l2 + l3),
+          "timed-block losses finite")
+    profile_steps(trainer, img, lat, prior, collected, coll2,
+                  {k: v[0] for k, v in per_step.items()})
+    return launches
+
+
+def profile_steps(trainer, img, lat, prior, collected, coll2, step_ms):
+    """One torch.profiler window of PROFILED_ITERS iterations per step:
+    device-busy ms per iteration, its share of the unprofiled ms/iter of
+    the timed block (`step_ms`; the profiler slows the host), CUDA kernels
+    per iteration, the kernels that take the most device time, and the
+    ported kernels' share.  Reports; never fails the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = PROFILED_ITERS
+    runs = {"prior": lambda: trainer.run_prior(img, prior, n),
+            "step1": lambda: trainer.run_step1(img, n),
+            "step2": lambda: trainer.run_step2(img, lat, collected, n),
+            "step3": lambda: trainer.run_step3(img, lat, coll2, n)}
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t) * 1e6
+        try:
+            report_profile(name, prof, wall_us, step_ms[name], n)
+        except Exception as exc:  # a measurement only: say so, run on
+            print(f"PROFILE {name}: not measured ({exc!r})", flush=True)
+
+
+def report_profile(name, prof, wall_us, step_ms, n):
+    import torch
+
+    # device activities only: kernels and copies, not the user-annotation
+    # ranges (Optimizer.step#...) that the profiler also puts on the device
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    ours = sum(v for k, v in by_name.items()
+               if any(s in k for s in ("place_kernel", "tests_kernel",
+                                       "fetch2x2_kernel",
+                                       "splat2x2_kernel")))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    busy_ms = busy_us / n / 1e3
+    print(f"PROFILE {name}: device busy {busy_ms:.2f} ms/iter = "
+          f"{busy_ms / step_ms:.1%} of the unprofiled {step_ms:.2f} ms/iter "
+          f"(idle {1 - busy_ms / step_ms:.1%}; profiled wall "
+          f"{wall_us / n / 1e3:.2f} ms/iter), {len(kernels) / n:.0f} device "
+          f"activities/iter, ported kernels {ours / max(busy_us, 1e-9):.2%}"
+          f" of device time", flush=True)
+    for k, v in top:
+        print(f"  {v / busy_us:6.1%} {v / n / 1e3:8.3f} ms/iter "
+              f"{k[:110]}", flush=True)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("FAIL no CUDA device: this smoke run needs one GPU",
+              flush=True)
+        return 1
+    card = card_line()
+    print(f"CARD {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+    try:
+        from gan2shape_torch.device import resolve_device
+        from gan2shape_torch.ops import _cuda
+
+        resolve_device("cuda")
+        t0 = time.perf_counter()
+        logs = _cuda.build()
+        print(f"BUILD {sorted(logs)} in {time.perf_counter() - t0:.2f} s "
+              f"(already built: {sorted(set(_cuda.SOURCES) - set(logs))})",
+              flush=True)
+        for name, log in logs.items():
+            for line in log.splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"  ptxas {name}: {line.strip()}")
+
+        results = {}
+        check_raster(results)
+        check_window(results)
+        check_raster_gradients()
+        launches = run_main_path()
+    except Failed:
+        return 1
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        **results[name]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,108 @@
+"""Guards of the port's boundaries: gan2shape_torch and chip_smoke.py import
+neither JAX nor the JAX package (an AST scan and a clean subprocess import);
+the entry points refuse to fall back to the CPU; CPU tensors never reach a
+kernel launch."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gan2shape_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "gan2shape_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0:
+                yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_sources_import_no_jax(path):
+    bad = set(_imported_roots(path)) & set(FORBIDDEN)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_import_loads_no_jax_module():
+    code = (
+        "import sys, runpy\n"
+        "import gan2shape_torch, gan2shape_torch.core, "
+        "gan2shape_torch.convert, gan2shape_torch.models, "
+        "gan2shape_torch.ops, gan2shape_torch.rendering\n"
+        "import gan2shape_torch.ops._cuda\n"
+        "sys.argv = ['chip_smoke.py', '--help']\n"
+        "try:\n"
+        "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in %r)\n"
+        "print('BAD', bad)\n" % (FORBIDDEN,))
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_entry_points_refuse_missing_cuda(monkeypatch):
+    from gan2shape_torch.core.model import GAN2Shape
+    from gan2shape_torch.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GAN2Shape({"image_size": 64, "gan_size": 32})
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_cpu_tensors_take_plain_versions():
+    from gan2shape_torch.ops import _cuda
+    from gan2shape_torch.ops.gather_window import gather_window2x2_planes
+    from gan2shape_torch.ops.rasterize import rasterize_depth_grid
+
+    _cuda.reset_launches()
+    rng = np.random.default_rng(0)
+    s = 16
+    ys, xs = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    vx = torch.tensor(xs[None] + rng.uniform(-0.2, 0.2, (2, s, s)),
+                      dtype=torch.float32, requires_grad=True)
+    vy = torch.tensor(ys[None] + 0.0, dtype=torch.float32).expand(2, s, s)
+    vz = torch.full((2, s, s), 1.0)
+    depth = rasterize_depth_grid(vx, vy, vz, window=3, near=0.8, far=1.2)
+    depth.sum().backward()
+    src = torch.randn(2, 4, s, s, requires_grad=True)
+    iy = torch.zeros(2, s, s, dtype=torch.int32)
+    gather_window2x2_planes(src, iy, iy).sum().backward()
+    assert torch.isfinite(vx.grad).all() and torch.isfinite(src.grad).all()
+    assert all(v == 0 for v in _cuda.LAUNCHES.values()), _cuda.LAUNCHES
+
+
+def test_cuda_wrappers_reject_non_cuda_tensors():
+    from gan2shape_torch.ops import _cuda
+
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        _cuda.check_cuda_tensor(torch.zeros(2, 2), "x", torch.float32, 2)

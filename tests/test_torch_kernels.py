@@ -1,0 +1,93 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card
+(marked `cuda`; they skip without a GPU).  This file imports no JAX, so it
+also runs where only the port is installed:
+
+    python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
+
+The fetch is bit-exact; the splat's atomics reorder colliding adds, so it is
+held to a few ulps; the raster payload buffers and winner keys are
+bit-exact."""
+
+import numpy as np
+import pytest
+import torch
+
+from gan2shape_torch.ops import _cuda
+from gan2shape_torch.ops.rasterize import (
+    SENTINEL, build_winner_buffers_plain, dense_winner_plain, raster_place,
+    raster_tests,
+)
+from gan2shape_torch.ops.splat_window import (
+    fetch2x2, fetch2x2_plain, splat2x2, splat2x2_plain,
+)
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _starts(rng, b, h, w, spread=3):
+    py, px = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    iy = py[None] + rng.integers(-spread, spread + 1, (b, h, w))
+    ix = px[None] + rng.integers(-spread, spread + 1, (b, h, w))
+    return (torch.from_numpy(np.clip(iy, 0, h - 2).reshape(b, -1)).int(),
+            torch.from_numpy(np.clip(ix, 0, w - 2).reshape(b, -1)).int())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [3, 4, 6])
+def test_fetch_and_splat_kernels_match_plain(rng, cuda, c):
+    b, h, w = 16, 128, 128
+    src = torch.from_numpy(rng.standard_normal((b, c, h, w)).astype(
+        np.float32))
+    g = torch.from_numpy(rng.standard_normal((b, 4 * c, h * w)).astype(
+        np.float32))
+    iy, ix = _starts(rng, b, h, w)
+    got = fetch2x2(src.to(cuda), iy.to(cuda), ix.to(cuda)).cpu()
+    assert torch.equal(got, fetch2x2_plain(src, iy, ix))
+    got = splat2x2(g.to(cuda), iy.to(cuda), ix.to(cuda), (b, c, h, w)).cpu()
+    want = splat2x2_plain(g, iy, ix, (b, c, h, w))
+    tol = 4 * torch.finfo(torch.float32).eps * max(float(want.abs().max()), 1)
+    assert float((got - want).abs().max()) <= tol
+
+
+def _warp(rng, b, s):
+    """Vertices of a smooth depth map under small rotations."""
+    ys, xs = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    c = (s - 1) / 2
+    out = []
+    for i in range(b):
+        a = 0.05 * (i % 4 - 1.5)
+        z = 1.0 + 0.05 * np.sin(xs / 9.0 + i) * np.cos(ys / 7.0)
+        x = c + (xs - c) * np.cos(a) - (ys - c) * np.sin(a) + 2 * (z - 1) * s
+        y = c + (xs - c) * np.sin(a) + (ys - c) * np.cos(a)
+        out.append((x, y, z))
+    return [torch.tensor(np.stack([o[k] for o in out]), dtype=torch.float32)
+            for k in range(3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,b,window", [(64, 4, 3), (128, 16, 3),
+                                        (64, 4, 5)])
+def test_raster_kernels_match_plain(rng, cuda, s, b, window):
+    near, far = 0.8, 1.2
+    vx, vy, vz = _warp(rng, b, s)
+    ref = build_winner_buffers_plain(vx, vy, vz, window, near, far)
+    _cuda.reset_launches()
+    bufs = raster_place(vx.to(cuda), vy.to(cuda), vz.to(cuda), window, near,
+                        far)
+    assert torch.equal(bufs.cpu(), ref)
+    key = raster_tests(bufs, s, s, window, near, far).cpu()
+    # placement is two launches of place_kernel (collision pass, write pass)
+    assert _cuda.LAUNCHES["raster_place"] == 2
+    assert _cuda.LAUNCHES["raster_tests"] == 1
+    assert torch.equal(key, dense_winner_plain(ref, s, s, window, near, far))
+    assert float((key != SENTINEL).float().mean()) > 0.5
