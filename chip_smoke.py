@@ -7,15 +7,26 @@ Phases, each of which must pass:
   2. build the CUDA kernels from gan2shape_torch/csrc (one nvcc per source,
      all at once) into build/kernels/;
   3. hold every kernel against its plain PyTorch version on the card at the
-     main path's shapes, and time the kernel, the plain version and, where
-     one exists, one PyTorch call of the same function (a yardstick only);
-  4. the main path at full width: the face-128 Trainer (image 128, GAN 128,
+     main path's shapes (the raster kernels at windows 3 and 5), and time
+     the kernel, the plain version and, where one exists, one PyTorch call
+     of the same function (a yardstick only);
+  4. the rasterizer check (`gan2shape_torch.tools.check_raster`, the path of
+     `raster_mega`, the counterpart of the JAX `_raster_mega_pallas`) at 64
+     and 128 px, with the launch counts zeroed just before and read just
+     after, its `raster_mega` checks held bit-exact; then `raster_mega`
+     timed against the buffers path (its launches in the kernels line are
+     those of the two kernels it runs, `place_kernel` and `tests_kernel`,
+     on this path);
+  5. the other raster modes and the renders at full width: `warp_canon_depth`
+     in 'scatter' and 'invwarp' mode at B=16 and `render_view` (mesh RGB) at
+     B=1, 128 px, checked finite and covered, and timed;
+  6. the main path at full width: the face-128 Trainer (image 128, GAN 128,
      channel_multiplier 1, z 512, 16 pseudo samples, LPIPS-VGG, box prior,
      seeded random weights) runs `fit` on one random image and latent, with
      every kernel's launch count zeroed just before and read just after;
      then a timed block of each step, the instance time it projects, and a
      torch.profiler window per step (device-busy share, top kernels);
-  5. one JSON line describing every kernel, the card line again, and last
+  7. one JSON line describing every kernel, the card line again, and last
      {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Kernel builds and run
@@ -58,7 +69,16 @@ KERNELS = {
                  "gan2shape_tpu/ops/splat_window.py:126"),
     "splat2x2": ("gan2shape_torch/csrc/window.cu",
                  "gan2shape_tpu/ops/splat_window.py:33"),
+    "raster_mega": ("gan2shape_torch/csrc/raster.cu",
+                    "gan2shape_tpu/ops/rasterize.py:595"),
 }
+# raster_mega launches no kernel of its own: it runs place_kernel (counted
+# as raster_place) and tests_kernel (counted as raster_tests)
+SERVED_BY = {"raster_mega": {"place_kernel": "raster_place",
+                             "tests_kernel": "raster_tests"}}
+# the kernels each driven path must launch
+MAIN_PATH = ("raster_place", "raster_tests", "fetch2x2", "splat2x2")
+CHECK_PATH = ("raster_place", "raster_tests", "fetch2x2")
 
 
 class Failed(Exception):
@@ -105,9 +125,8 @@ def check(cond, what):
 # ---------------- inputs at the main path's shapes ----------------
 
 
-def training_warp(renderer, b, seed):
-    """Vertices (vx, vy, vz) of smooth depth maps under training-scale
-    views, as the renderer projects them."""
+def training_scene(renderer, b, seed):
+    """Smooth depth maps (B, S, S) and training-scale views (rot, trans)."""
     import torch
     import torch.nn.functional as F
     from gan2shape_torch.rendering.renderer import get_transform_matrices
@@ -119,7 +138,14 @@ def training_warp(renderer, b, seed):
         low, size=(s, s), mode="bicubic", align_corners=False))[:, 0]
     views = torch.tensor((VIEWS * (b // len(VIEWS) + 1))[:b],
                          device="cuda")
-    rot, trans = get_transform_matrices(views)
+    return (depth, *get_transform_matrices(views))
+
+
+def training_warp(renderer, b, seed):
+    """Vertices (vx, vy, vz) of smooth depth maps under training-scale
+    views, as the renderer projects them."""
+    depth, rot, trans = training_scene(renderer, b, seed)
+    s = renderer.image_size
     pts = renderer.get_warped_3d_grid(depth, rot, trans).reshape(b, -1, 3)
     xs, ys, zs = renderer._project_screen(pts)
     return (xs.reshape(b, s, s).contiguous(), ys.reshape(b, s, s).contiguous(),
@@ -150,72 +176,91 @@ def inside_candidates(bufs, h, w, window, near, far):
 # ---------------- phase 3: kernels against plain versions ----------------
 
 
+def raster_ops(bufs, b, s, window, near, far):
+    """Operations of placement and of the candidate tests at these inputs:
+    ~60 a face; ~25 a candidate test and ~17 more for each candidate this
+    data covers.  Returns (placement, tests, covered, candidates)."""
+    n_cand = 2 * 4 * window * window * b * s * s
+    n_inside = inside_candidates(bufs, s, s, window, near, far)
+    return (2 * b * (s - 1) ** 2 * 60, 25 * n_cand + 17 * n_inside,
+            n_inside, n_cand)
+
+
 def check_raster(results):
     import torch
     from gan2shape_torch.ops import rasterize as R
     from gan2shape_torch.rendering.renderer import Renderer
 
-    near, far, window = 0.8, 1.2, 3
+    near, far = 0.8, 1.2
     worst = 0
-    for s, b in ((128, 1), (128, 16), (64, 4)):
-        renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
-        vx, vy, vz = training_warp(renderer, b, seed=s + b)
-        bufs = R.raster_place(vx, vy, vz, window, near, far)
-        key = R.raster_tests(bufs, s, s, window, near, far)
-        torch.cuda.synchronize()
-        covered = float((key != R.SENTINEL).float().mean())
-        # the plain version on the same inputs, on the card and on the CPU
-        for where in ("cuda", "cpu"):
-            v = [t.to(where) for t in (vx, vy, vz)]
-            ref_bufs = R.build_winner_buffers_plain(*v, window, near, far)
-            ref_key = R.dense_winner_plain(ref_bufs, s, s, window, near, far)
-            # the test kernel alone, on the plain version's payloads
-            key_on_ref = R.raster_tests(ref_bufs.cuda(), s, s, window, near,
-                                        far).to(where)
-            buf_eq = bool(torch.equal(bufs.to(where), ref_bufs))
-            agree = float((key.to(where) == ref_key).float().mean())
-            agree_t = float((key_on_ref == ref_key).float().mean())
-            worst = max(worst, int((key.to(where).long() - ref_key.long())
-                                   .abs().max()))
-            check(buf_eq and agree >= 0.9999 and agree_t >= 0.9999
-                  and covered > 0.5,
-                  f"raster {s}px B={b} window {window} vs plain on {where}: "
-                  f"payload buffers equal {buf_eq}, key agreement "
-                  f"{agree:.6f}, tests kernel alone {agree_t:.6f} "
-                  f"(>= 0.9999), covered {covered:.4f}")
-    # timings and bounds at the main path's largest call (B=16, 128 px)
+    # window 3 is the training default; window 5 is the reach of the exact
+    # z-buffer, of `raster_window: 5` and of the rasterizer check
+    for window, cases in ((3, ((128, 1), (128, 16), (64, 4))),
+                          (5, ((128, 16), (64, 4)))):
+        for s, b in cases:
+            renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
+            vx, vy, vz = training_warp(renderer, b, seed=s + b)
+            bufs = R.raster_place(vx, vy, vz, window, near, far)
+            key = R.raster_tests(bufs, s, s, window, near, far)
+            torch.cuda.synchronize()
+            covered = float((key != R.SENTINEL).float().mean())
+            # the plain version on the same inputs, on the card and the CPU
+            for where in ("cuda", "cpu"):
+                v = [t.to(where) for t in (vx, vy, vz)]
+                ref_bufs = R.build_winner_buffers_plain(*v, window, near, far)
+                ref_key = R.dense_winner_plain(ref_bufs, s, s, window, near,
+                                               far)
+                # the test kernel alone, on the plain version's payloads
+                key_on_ref = R.raster_tests(ref_bufs.cuda(), s, s, window,
+                                            near, far).to(where)
+                buf_eq = bool(torch.equal(bufs.to(where), ref_bufs))
+                agree = float((key.to(where) == ref_key).float().mean())
+                agree_t = float((key_on_ref == ref_key).float().mean())
+                worst = max(worst, int((key.to(where).long()
+                                        - ref_key.long()).abs().max()))
+                check(buf_eq and agree >= 0.9999 and agree_t >= 0.9999
+                      and covered > 0.5,
+                      f"raster {s}px B={b} window {window} vs plain on "
+                      f"{where}: payload buffers equal {buf_eq}, key "
+                      f"agreement {agree:.6f}, tests kernel alone "
+                      f"{agree_t:.6f} (>= 0.9999), covered {covered:.4f}")
+    # timings and bounds at the main path's largest call (B=16, 128 px),
+    # at window 3 (the main path's: the kernels line) and window 5
     s, b = 128, 16
     renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
     vx, vy, vz = training_warp(renderer, b, seed=7)
-    bufs = R.raster_place(vx, vy, vz, window, near, far)
-    # inputs read once, outputs written once: the vertex fields in, the
-    # payload buffers out (the collision-key scratch is not counted)
-    buf_bytes = bufs.numel() * 2
-    n_faces = 2 * b * (s - 1) ** 2
-    place_bound = bound_ms(3 * b * s * s * 4 + buf_bytes, n_faces * 60)
-    n_cand = 2 * 4 * window * window * b * s * s
-    n_inside = inside_candidates(bufs, s, s, window, near, far)
-    tests_bound = bound_ms(buf_bytes + b * s * s * 4,
-                           25 * n_cand + 17 * n_inside)
-    timings = {
-        "raster_place": (
-            cuda_ms(lambda: R.raster_place(vx, vy, vz, window, near, far)),
-            cuda_ms(lambda: R.build_winner_buffers_plain(
-                vx, vy, vz, window, near, far), reps=10),
-            place_bound),
-        "raster_tests": (
-            cuda_ms(lambda: R.raster_tests(bufs, s, s, window, near, far)),
-            cuda_ms(lambda: R.dense_winner_plain(bufs, s, s, window, near,
-                                                 far), reps=5),
-            tests_bound),
-    }
-    for name, (ms, plain_ms, (bms, by)) in timings.items():
-        results[name] = {"max_abs_err": float(worst), "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bms,
-                         "bound_by": by, "library_ms": None}
-        print(f"TIME {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{bms:.4f} ms ({by}), at B={b} {s}px window {window}"
-              f" ({n_inside} of {n_cand} candidates covered)", flush=True)
+    for window in (3, 5):
+        bufs = R.raster_place(vx, vy, vz, window, near, far)
+        place_ops, tests_ops, n_inside, n_cand = raster_ops(
+            bufs, b, s, window, near, far)
+        # the vertex fields in, the payload buffers between (the collision
+        # key scratch is not counted), the keys out
+        buf_bytes = bufs.numel() * 2
+        place_bound = bound_ms(3 * b * s * s * 4 + buf_bytes, place_ops)
+        tests_bound = bound_ms(buf_bytes + b * s * s * 4, tests_ops)
+        timings = {
+            "raster_place": (
+                cuda_ms(lambda: R.raster_place(vx, vy, vz, window, near,
+                                               far)),
+                cuda_ms(lambda: R.build_winner_buffers_plain(
+                    vx, vy, vz, window, near, far), reps=10),
+                place_bound),
+            "raster_tests": (
+                cuda_ms(lambda: R.raster_tests(bufs, s, s, window, near,
+                                               far)),
+                cuda_ms(lambda: R.dense_winner_plain(bufs, s, s, window,
+                                                     near, far), reps=5),
+                tests_bound),
+        }
+        for name, (ms, plain_ms, (bms, by)) in timings.items():
+            if window == 3:
+                results[name] = {"max_abs_err": float(worst), "ms": ms,
+                                 "plain_ms": plain_ms, "bound_ms": bms,
+                                 "bound_by": by, "library_ms": None}
+            print(f"TIME {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {bms:.4f} ms ({by}), at B={b} {s}px window "
+                  f"{window} ({n_inside} of {n_cand} candidates covered)",
+                  flush=True)
 
 
 def window_inputs(b, c, s, seed):
@@ -326,7 +371,114 @@ def check_raster_gradients():
           f"(<= 1e-5), vertex-gradient rel err {gerr:.3e} (<= 5e-5)")
 
 
-# ---------------- phase 4: the main path ----------------
+# ---------------- phase 4: the rasterizer check (raster_mega) ------------
+
+
+def run_check_path(results):
+    """`check_raster.run_checks` on the card at 64 and 128 px, with the
+    launch counts zeroed before and read after, its `raster_mega` checks
+    held bit-exact; then `raster_mega` and the buffers path timed at 128 px,
+    B=4, window 5.  Returns the path's launch counts."""
+    import torch
+    from gan2shape_torch.ops import _cuda
+    from gan2shape_torch.ops import rasterize as R
+    from gan2shape_torch.rendering.renderer import Renderer
+    from gan2shape_torch.tools import check_raster as CR
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    res = CR.run_checks(sizes=(64, 128), batch=4, device="cuda")
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    print(f"check_raster at 64 and 128 px, B=4, in "
+          f"{time.perf_counter() - t0:.2f} s on {res['device']}; launches "
+          f"{launches}", flush=True)
+    for c in res["checks"]:
+        cov = (f", covered agreement {c['covered_agreement']:.6f} (>= "
+               f"{c['covered_min']})" if "covered_agreement" in c else "")
+        print(("PASS" if c["pass"] else "FAIL") + f" check_raster "
+              f"{c['check']}: agreement {c['agreement']:.6f} (>= "
+              f"{c['min']}){cov}", flush=True)
+    check(res["ok"], f"every check_raster check passed "
+          f"({len(res['checks'])} checks)")
+    # on the card the kernels compute the buffers path's function exactly,
+    # so hold raster_mega's checks to bit-equality, tighter than the tool's
+    mega = [c for c in res["checks"] if c["check"].startswith("raster_mega")]
+    err = max(c["max_abs_err"] for c in mega)
+    check(len(mega) == 2 and err == 0.0
+          and all(c["agreement"] == 1.0 for c in mega),
+          f"raster_mega vs the buffers path at 64 and 128 px, B=4, window "
+          f"5: max abs err {err} (bit-exact)")
+    missing = [k for k in CHECK_PATH if launches[k] == 0]
+    check(not missing, f"every kernel of the check path launched (none "
+          f"missing: {missing})")
+
+    s, b, window, near, far = 128, 4, 5, 0.8, 1.2
+    renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
+    vx, vy, vz = training_warp(renderer, b, seed=11)
+    bufs = R.raster_place(vx, vy, vz, window, near, far)
+    place_ops, tests_ops, n_inside, n_cand = raster_ops(
+        bufs, b, s, window, near, far)
+    # the fused function's own inputs and outputs: the vertex fields in,
+    # cell and parity (f32) and covered (bool) out
+    bms, by = bound_ms(3 * b * s * s * 4 + b * s * s * 9,
+                       place_ops + tests_ops)
+    ms = cuda_ms(lambda: R.raster_mega(vx, vy, vz, window, near, far))
+    plain = cuda_ms(lambda: R.dense_winner(vx, vy, vz, window, near, far),
+                    reps=5)
+    results["raster_mega"] = {"max_abs_err": err, "ms": ms,
+                              "plain_ms": plain, "bound_ms": bms,
+                              "bound_by": by, "library_ms": None}
+    print(f"TIME raster_mega: {ms:.4f} ms, plain {plain:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}), at B={b} {s}px window {window} "
+          f"({n_inside} of {n_cand} candidates covered)", flush=True)
+    return launches
+
+
+# ---------------- phase 5: the other raster modes and the renders ---------
+
+
+def run_modes_and_renders():
+    """`warp_canon_depth` in 'scatter' and 'invwarp' mode at B=16 and
+    `render_view` (mesh RGB, 9 yaw + 5 pitch frames) at B=1, 128 px:
+    finite, covered, timed."""
+    import torch
+    from gan2shape_torch.rendering.renderer import Renderer
+
+    renderer = Renderer(FACE128, 128, 0.9, 1.1, device="cuda")
+    far = renderer.max_depth + renderer.margin
+    depth, rot, trans = training_scene(renderer, 16, seed=5)
+    for mode in ("scatter", "invwarp"):
+        d = renderer.warp_canon_depth(depth, rot, trans, raster_mode=mode)
+        covered = float((d < far).float().mean())
+        check(bool(torch.isfinite(d).all()) and covered > 0.5,
+              f"warp_canon_depth {mode} B=16 128px: finite, covered "
+              f"{covered:.4f} (> 0.5)")
+        ms = cuda_ms(lambda: renderer.warp_canon_depth(
+            depth, rot, trans, raster_mode=mode), reps=5, warmup=1)
+        print(f"TIME warp_canon_depth {mode}: {ms:.3f} ms per call at B=16 "
+              f"128px (window {max(renderer.raster_window, 5)}, search "
+              f"{renderer.raster_search})", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    # colours inside (-1, 1): a covered pixel never equals the background 1
+    im = torch.rand(1, 3, 128, 128, generator=g, device="cuda") * 1.8 - 0.9
+    frames = renderer.render_view(im, depth[:1])
+    torch.cuda.synchronize()
+    covered = (frames != 1.0).float().mean((0, 2, 3, 4))
+    check(tuple(frames.shape) == (1, 14, 3, 128, 128)
+          and bool(torch.isfinite(frames).all())
+          and float(covered.mean()) > 0.5,
+          f"render_view B=1 128px: 14 frames finite, covered "
+          f"{float(covered.mean()):.4f} on average (> 0.5), per frame "
+          f"{[round(float(c), 3) for c in covered]}")
+    ms = cuda_ms(lambda: renderer.render_view(im, depth[:1]), reps=3,
+                 warmup=1)
+    print(f"TIME render_view: {ms:.3f} ms per call at B=1 128px (9 yaw + 5 "
+          f"pitch mesh-RGB frames)", flush=True)
+
+
+# ---------------- phase 6: the main path ----------------
 
 
 def run_main_path():
@@ -356,8 +508,8 @@ def run_main_path():
           and all(math.isfinite(x) for x in losses),
           f"fit losses finite: step1 {rec['losses_step1']}, step2 "
           f"{rec['losses_step2']}, step3 {rec['losses_step3']}")
-    missing = [k for k, v in launches.items() if v == 0]
-    check(not missing, f"every kernel launched on the main path "
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    check(not missing, f"every kernel of the main path launched "
           f"(none missing: {missing})")
 
     # timed block: each step's iterations alone, with per-step launches
@@ -486,14 +638,27 @@ def main():
         check_raster(results)
         check_window(results)
         check_raster_gradients()
+        check_launches = run_check_path(results)
+        run_modes_and_renders()
         launches = run_main_path()
     except Failed:
         return 1
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        # each entry's launches on the path that is its own: raster_mega's,
+        # those of the kernels that serve it on the rasterizer check; the
+        # others' on the main path
+        extra = {}
+        if name in SERVED_BY:
+            extra["served_by"] = {kernel: check_launches[counter]
+                                  for kernel, counter
+                                  in SERVED_BY[name].items()}
+            n = sum(extra["served_by"].values())
+        else:
+            n = launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        **results[name]})
+                        "replaces": replaces, "launches": n,
+                        **results[name], **extra})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 // Replaces the Pallas kernels of gan2shape_tpu/ops/rasterize.py:
 //   _raster_mega_pallas_v2 (the 128-px path), _dense_winner_pallas (64 px and
 //   any width that is not a multiple of 128), and _raster_mega_pallas, which
-//   has the same contract (no dispatch reaches it).  All three return, per
+//   has the same contract (reached through raster_mega in ops/rasterize.py,
+//   on the rasterizer check's path).  All three return, per
 //   output pixel, the min packed key (quantized depth << 17 | face id) over
 //   the candidate tests; _decode_key turns it into (cell, parity, covered).
 //

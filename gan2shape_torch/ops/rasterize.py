@@ -1,7 +1,20 @@
-"""Differentiable depth rasterization of a warped grid mesh ('grid' mode).
+"""Differentiable depth rasterization of a warped grid mesh.
 
 The mesh is the fixed regular-grid triangulation of a depth map:
-2*(h-1)*(w-1) small triangles.  Three stages:
+2*(h-1)*(w-1) small triangles.  Three winner passes, selected by `mode`:
+
+  * 'grid' (the training path, `rasterize_depth_grid`): the CUDA kernels
+    below;
+  * 'scatter' (`_winner_pass`): the exact z-buffer, exact-f32 nearest face
+    with lowest-id ties over every face's window^2 bbox-offset pixels; used
+    by the mesh-RGB renders and as the exactness oracle;
+  * 'invwarp' (`_winner_pass_invwarp`): fixed-point inversion of the vertex
+    displacement field, then exact tests of the faces around the estimate.
+
+'scatter' and 'invwarp' are plain torch (the JAX package's are XLA, not
+Pallas); both re-interpolate the winner differentiably by a gather.
+
+'grid' mode has three stages:
 
   1. [no grad] placement: each face's compact int16 payload goes to its
      half-pixel bbox-start slot; on a slot collision the nearest face wins
@@ -17,7 +30,9 @@ The mesh is the fixed regular-grid triangulation of a depth map:
 
 Stages 1 and 2 are the CUDA kernels of csrc/raster.cu on CUDA tensors and the
 plain torch versions below (the JAX package's `_build_winner_buffers` +
-`_dense_winner_xla`, bit for bit) on CPU tensors.
+`_dense_winner_xla`, bit for bit) on CPU tensors.  `raster_mega` runs the
+same two stages under the contract of the JAX package's `_raster_mega_pallas`
+(cell, parity, covered); `dense_winner` is the buffers path in that form.
 """
 
 import numpy as np
@@ -30,6 +45,7 @@ DEPTH_BITS = 14
 FACE_BITS = 17  # 2*(h-1)*(w-1) faces: up to 256x256 grids
 SENTINEL = 2 ** 31 - 1
 N_CHANNELS = 10
+MODES = ("grid", "scatter", "invwarp")
 
 
 def _f32(x):
@@ -55,6 +71,34 @@ def _barycentric(px, py, x0, y0, x1, y1, x2, y2):
     l1 = ((y2 - y0) * (px - x2) + (x0 - x2) * (py - y2)) / safe
     l2 = 1.0 - l0 - l1
     return l0, l1, l2, degenerate
+
+
+def _fma(a, b, c):
+    """a * b + c of f32 tensors as a fused multiply-add: the product of two
+    f32 is exact in f64, and the f64 sum is rounded to f32.  That is two
+    roundings, so it is one ulp off a true FMA where the f64 sum lands
+    exactly on an f32 halfway point that the exact sum misses (the low 29
+    bits of the f64 sum must equal one pattern: about 2^-29 of calls on
+    data without such structure).  An exact version (a round-to-odd f64
+    sum) made 'scatter' 1.4x and 'invwarp' 1.5-1.9x slower on an H100."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _barycentric_jit(px, py, x0, y0, x1, y1, x2, y2, z0, z1, z2):
+    """`_barycentric` and the interpolated 1/z as the JAX package's jitted
+    winner passes compute them: XLA rewrites (n / d) / z as n / (d * z), and
+    XLA:CPU contracts a*b + c*d into fma(a, b, c*d).  The exact z-buffer
+    breaks depth ties on these bits, so the port does the same."""
+    denom = _fma(y1 - y2, x0 - x2, (x2 - x1) * (y0 - y2))
+    degenerate = torch.abs(denom) <= 1e-12
+    safe = torch.where(degenerate, torch.ones_like(denom), denom)
+    n0 = _fma(y1 - y2, px - x2, (x2 - x1) * (py - y2))
+    n1 = _fma(y2 - y0, px - x2, (x0 - x2) * (py - y2))
+    l0 = n0 / safe
+    l1 = n1 / safe
+    l2 = 1.0 - l0 - l1
+    inv_z = n0 / (safe * z0) + n1 / (safe * z1) + l2 / z2
+    return l0, l1, l2, degenerate, inv_z
 
 
 def _inv_z_quant(near, far):
@@ -263,6 +307,208 @@ def winner_keys(vx, vy, vz, window, near, far):
     return raster_tests(bufs, h, w, window, near, far)
 
 
+def _winner_cells(key):
+    """(B, H, W) winner keys -> the JAX kernels' (cell f32, parity f32,
+    covered bool) planes."""
+    h, w = key.shape[1:]
+    cell, par, covered = decode_key(key, (h - 1) * (w - 1))
+    return cell.float(), par.float(), covered
+
+
+def raster_mega(vx, vy, vz, window, near, far):
+    """Counterpart of the JAX package's `_raster_mega_pallas`: placement and
+    candidate tests on (B, H, W) vertex fields, returning (cell f32,
+    parity f32, covered bool).  That kernel's serial placement overwrites a
+    slot only with a strictly smaller (32767 - r0q) << 16 | cell key and
+    drops no displaced face, which is the nearest-wins min-merge of
+    `raster_place`; so on CUDA tensors this runs the two kernels of
+    csrc/raster.cu, on CPU tensors their plain versions.  It launches no
+    kernel of its own: its launches are counted as `raster_place` (two) and
+    `raster_tests` (one)."""
+    key = winner_keys(*(t.detach().contiguous() for t in (vx, vy, vz)),
+                      window, near, far)
+    return _winner_cells(key)
+
+
+def dense_winner(vx, vy, vz, window, near, far):
+    """The buffers path (`_build_winner_buffers` + `_dense_winner_xla`) in
+    its (cell f32, parity f32, covered bool) form, by the plain versions on
+    any device: the oracle `raster_mega` is held to."""
+    h, w = vx.shape[1:]
+    bufs = build_winner_buffers_plain(vx, vy, vz, window, near, far)
+    return _winner_cells(dense_winner_plain(bufs, h, w, window, near, far))
+
+
+# ---------------- 'scatter' and 'invwarp' winner passes ----------------
+
+@torch.no_grad()
+def _winner_pass(xs, ys, zs, faces, h, w, window):
+    """Exact z-buffer (no gradient): winner face id per pixel (B, H, W)
+    int64, -1 where uncovered.  xs/ys/zs (B, N) screen coords and camera
+    depth, faces (F, 3) int64.  Each face tests the window^2 pixels at offsets (dy, dx) from its
+    integer bbox start.  Ranking is exact-f32 nearest with lowest-face-id
+    ties: positive floats order as their int32 bit patterns, so two
+    scatter-min passes (min depth bits per pixel, then min face id among the
+    candidates at that depth) give the lexicographic (depth, id) order."""
+    b = xs.shape[0]
+    n_faces = faces.shape[0]
+    dev = xs.device
+    fx, fy, fz = xs[:, faces], ys[:, faces], zs[:, faces]  # (B, F, 3)
+    x0, x1, x2 = fx.unbind(-1)
+    y0, y1, y2 = fy.unbind(-1)
+
+    def floor_int(v):
+        return torch.floor(v).clamp(-2.0 ** 30, 2.0 ** 30).long()
+
+    bx = floor_int(torch.minimum(torch.minimum(x0, x1), x2))
+    by = floor_int(torch.minimum(torch.minimum(y0, y1), y2))
+    offs = torch.arange(window, device=dev)
+    dy = offs.repeat_interleave(window).reshape(-1, 1, 1)  # (K, 1, 1)
+    dx = offs.repeat(window).reshape(-1, 1, 1)
+    px_i = bx + dx  # (K, B, F)
+    py_i = by + dy
+    l0, l1, l2, degen, inv_z = _barycentric_jit(
+        px_i.to(xs.dtype), py_i.to(xs.dtype), x0, y0, x1, y1, x2, y2,
+        *fz.unbind(-1))
+    z = 1.0 / torch.clamp_min(inv_z, _f32(1e-12))
+    eps = _f32(-1e-5)
+    ok = ((l0 >= eps) & (l1 >= eps) & (l2 >= eps) & ~degen
+          & (px_i >= 0) & (px_i < w) & (py_i >= 0) & (py_i < h) & (z > 0))
+    zbits = torch.where(ok, z.view(torch.int32), SENTINEL).reshape(-1)
+    pix = py_i.clamp(0, h - 1) * w + px_i.clamp(0, w - 1)
+    seg = (pix + torch.arange(b, device=dev).reshape(b, 1) * (h * w)
+           ).reshape(-1)
+
+    def segment_min(vals):
+        out = torch.full((b * h * w,), SENTINEL, dtype=torch.int32,
+                         device=dev)
+        return out.scatter_reduce_(0, seg, vals, reduce="amin")
+
+    buf_z = segment_min(zbits)
+    fid = torch.arange(n_faces, dtype=torch.int32, device=dev).expand(
+        px_i.shape).reshape(-1)
+    buf_f = segment_min(torch.where((zbits == buf_z[seg]) & ok.reshape(-1),
+                                    fid, SENTINEL))
+    return torch.where(buf_z == SENTINEL, -1, buf_f.long()).reshape(b, h, w)
+
+
+@torch.no_grad()
+def _winner_pass_invwarp(xs, ys, zs, h, w, search=1, fp_iters=8):
+    """Gather-only winner search for grid meshes (no gradient): winner face
+    ids (B, H, W) int64 in `grid_faces` order, -1 where uncovered.  Each
+    pixel's source cell is found by fixed-point inversion of the vertex displacement field
+    (c <- p - D(c), bilinear gathers), started from the nearest screen
+    vertex of a stride-4 subgrid; then the 2 * (2*search+1)^2 faces around
+    that cell are tested exactly and the nearest hit wins.  Exact where the
+    warp's folds stay inside the search neighbourhood."""
+    b = xs.shape[0]
+    dt, dev = xs.dtype, xs.device
+    fx, fy, fz = (v.reshape(b, h, w) for v in (xs, ys, zs))
+    gy = torch.arange(h, dtype=dt, device=dev).reshape(h, 1).expand(h, w)
+    gx = torch.arange(w, dtype=dt, device=dev).reshape(1, w).expand(h, w)
+    dx_f = fx - gx
+    dy_f = fy - gy
+    px = gx.expand(b, h, w)
+    py = gy.expand(b, h, w)
+
+    def bilerp(field, cy, cx):
+        x0 = torch.clamp(torch.floor(cx), 0, w - 2)
+        y0 = torch.clamp(torch.floor(cy), 0, h - 2)
+        tx = torch.clamp(cx - x0, 0.0, 1.0)
+        ty = torch.clamp(cy - y0, 0.0, 1.0)
+        idx = (y0.long() * w + x0.long()).reshape(b, -1)
+        f = field.reshape(b, h * w)
+
+        def take(off):
+            return f.gather(1, idx + off).reshape(b, h, w)
+        return ((1 - ty) * ((1 - tx) * take(0) + tx * take(1))
+                + ty * ((1 - tx) * take(w) + tx * take(w + 1)))
+
+    # nearest screen vertex of a stride-4 subgrid, over candidate chunks of
+    # 64; argmin keeps the first minimum, so ties break as in JAX
+    stride = 4
+    sub_x = fx[:, ::stride, ::stride].reshape(b, -1)
+    sub_y = fy[:, ::stride, ::stride].reshape(b, -1)
+    gy_s = gy[::stride, ::stride].reshape(-1)
+    gx_s = gx[::stride, ::stride].reshape(-1)
+    pxf = px.reshape(b, h * w, 1)
+    pyf = py.reshape(b, h * w, 1)
+    m = sub_x.shape[1]
+    ch = min(64, m)
+    n_chunks = -(-m // ch)
+    pad = n_chunks * ch - m
+    sub_x = torch.nn.functional.pad(sub_x, (0, pad), value=1e9)
+    sub_y = torch.nn.functional.pad(sub_y, (0, pad), value=1e9)
+    best_d2 = torch.full((b, h * w), float("inf"), dtype=dt, device=dev)
+    nearest = torch.zeros((b, h * w), dtype=torch.long, device=dev)
+    for k in range(n_chunks):
+        ddx = sub_x[:, None, k * ch:(k + 1) * ch] - pxf
+        ddy = sub_y[:, None, k * ch:(k + 1) * ch] - pyf
+        d2 = ddx * ddx + ddy * ddy
+        upd = torch.amin(d2, 2) < best_d2
+        best_d2 = torch.where(upd, torch.amin(d2, 2), best_d2)
+        nearest = torch.where(upd, torch.argmin(d2, 2) + k * ch, nearest)
+    cy = gy_s[nearest].reshape(b, h, w)
+    cx = gx_s[nearest].reshape(b, h, w)
+
+    for _ in range(fp_iters):
+        ny = py - bilerp(dy_f, cy, cx)
+        nx = px - bilerp(dx_f, cy, cx)
+        cy = torch.clamp(cy + 0.7 * (ny - cy), 0, h - 1)
+        cx = torch.clamp(cx + 0.7 * (nx - cx), 0, w - 1)
+
+    i0 = torch.floor(cy).long().clamp(0, h - 2)
+    j0 = torch.floor(cx).long().clamp(0, w - 2)
+    flat = [v.reshape(b, h * w) for v in (fx, fy, fz)]
+
+    def corner(ii, jj):
+        idx = (ii * w + jj).reshape(b, -1)
+        return [v.gather(1, idx).reshape(b, h, w) for v in flat]
+
+    best_z = torch.full((b, h, w), float("inf"), dtype=dt, device=dev)
+    best_id = torch.full((b, h, w), -1, dtype=torch.long, device=dev)
+    n_faces = (h - 1) * (w - 1)
+    eps = _f32(-1e-5)
+    for di in range(-search, search + 1):
+        for dj in range(-search, search + 1):
+            ci = (i0 + di).clamp(0, h - 2)
+            cj = (j0 + dj).clamp(0, w - 2)
+            tl, tr = corner(ci, cj), corner(ci, cj + 1)
+            bl, br = corner(ci + 1, cj), corner(ci + 1, cj + 1)
+            cell = ci * (w - 1) + cj
+            for (v0, v1, v2), fid in (((tl, bl, tr), cell),
+                                      ((tr, bl, br), cell + n_faces)):
+                l0, l1, l2, degen, inv_z = _barycentric_jit(
+                    px, py, v0[0], v0[1], v1[0], v1[1], v2[0], v2[1],
+                    v0[2], v1[2], v2[2])
+                z = 1.0 / torch.clamp_min(inv_z, _f32(1e-12))
+                better = ((l0 >= eps) & (l1 >= eps) & (l2 >= eps) & ~degen
+                          & (z > 0) & (z < best_z))
+                best_z = torch.where(better, z, best_z)
+                best_id = torch.where(better, fid, best_id)
+    return best_id
+
+
+def _winner_weights(xs, ys, zs, faces, winner):
+    """The winner's vertex ids (B, P, 3) and its perspective weights
+    (l_i / z_i) at the pixel centres, differentiable in xs, ys, zs."""
+    b, h, w = winner.shape
+    wf = torch.where(winner >= 0, winner, 0).reshape(b, -1)
+    tri = faces[wf]  # (B, P, 3)
+
+    def gather(v):
+        return v.gather(1, tri.reshape(b, -1)).reshape(b, h * w, 3)
+
+    tx, ty, tz = gather(xs), gather(ys), gather(zs)
+    gy, gx = torch.meshgrid(torch.arange(h, dtype=xs.dtype, device=xs.device),
+                            torch.arange(w, dtype=xs.dtype, device=xs.device),
+                            indexing="ij")
+    l0, l1, l2, _ = _barycentric(gx.reshape(1, -1), gy.reshape(1, -1),
+                                 tx[..., 0], ty[..., 0], tx[..., 1],
+                                 ty[..., 1], tx[..., 2], ty[..., 2])
+    return tri, (l0 / tz[..., 0], l1 / tz[..., 1], l2 / tz[..., 2])
+
+
 # ---------------- stage 3 and entry points ----------------
 
 def rasterize_depth_grid(vx, vy, vz, window=3, near=0.3, far=1.3):
@@ -301,14 +547,50 @@ def rasterize_depth_grid(vx, vy, vz, window=3, near=0.3, far=1.3):
     return torch.where(covered, z, z.new_tensor(far))
 
 
-def rasterize_depth(xs, ys, zs, h, w, window=5, near=0.3, far=1.3):
-    """Depth map of the projected grid mesh (the JAX function's 'grid' mode,
-    the only one ported; its triangulation is `grid_faces(h, w)`).  xs, ys
-    (B, N) pixel coordinates, zs (B, N) camera depth, N == h*w row-major;
-    the window is capped at 5."""
-    if xs.shape[1] != h * w:
-        raise ValueError(f"{xs.shape[1]} vertices do not form a {h}x{w} grid")
+def rasterize_depth(xs, ys, zs, faces, h, w, window=5, near=0.3, far=1.3,
+                    mode="grid", search=1):
+    """Depth map (B, H, W) of projected mesh vertices, `far` where uncovered.
+    xs, ys (B, N) pixel coordinates (x right, y down, centres at integers),
+    zs (B, N) camera depth, faces (F, 3) int64.  Gradients reach xs, ys, zs
+    through the barycentric re-interpolation of each pixel's winner.
+
+    mode 'grid' (N == h*w row-major grid vertices, window capped at 5; faces
+    unused), 'invwarp' (grid vertices, `search` cells around the estimate)
+    or 'scatter' (any mesh: the exact z-buffer)."""
+    if mode not in MODES:
+        raise ValueError(f"raster mode {mode!r} is not one of {MODES}")
     b = xs.shape[0]
-    return rasterize_depth_grid(
-        xs.reshape(b, h, w), ys.reshape(b, h, w), zs.reshape(b, h, w),
-        window=min(window, 5), near=float(near), far=float(far))
+    if mode == "grid" and xs.shape[1] == h * w:
+        return rasterize_depth_grid(
+            xs.reshape(b, h, w), ys.reshape(b, h, w), zs.reshape(b, h, w),
+            window=min(window, 5), near=float(near), far=float(far))
+    faces = torch.as_tensor(faces, device=xs.device).long()
+    if mode == "invwarp":
+        winner = _winner_pass_invwarp(xs, ys, zs, h, w, search=search)
+    else:
+        winner = _winner_pass(xs, ys, zs, faces, h, w, window)
+    _, (w0, w1, w2) = _winner_weights(xs, ys, zs, faces, winner)
+    z = 1.0 / torch.clamp_min(w0 + w1 + w2, _f32(1e-12))
+    return torch.where(winner >= 0, z.reshape(b, h, w), z.new_tensor(far))
+
+
+def rasterize_attributes(xs, ys, zs, attrs, faces, h, w, window=5,
+                         near=0.3, far=1.3, background=1.0):
+    """Per-vertex attributes `attrs` (B, N, C) rendered through the exact
+    z-buffer with perspective-correct interpolation (vertex colours of the
+    grid mesh, the reference's mesh-texture renders).  Returns the
+    (B, C, H, W) image, `background` where uncovered, and the (B, 1, H, W)
+    coverage mask."""
+    b, _, c = attrs.shape
+    faces = torch.as_tensor(faces, device=xs.device).long()
+    winner = _winner_pass(xs, ys, zs, faces, h, w, window)
+    tri, (w0, w1, w2) = _winner_weights(xs, ys, zs, faces, winner)
+    ta = attrs.gather(1, tri.reshape(b, -1, 1).expand(-1, -1, c)).reshape(
+        b, h * w, 3, c)
+    wsum = torch.clamp_min(w0 + w1 + w2, _f32(1e-12))
+    attr = (ta[..., 0, :] * w0[..., None] + ta[..., 1, :] * w1[..., None]
+            + ta[..., 2, :] * w2[..., None]) / wsum[..., None]
+    covered = (winner >= 0).reshape(b, 1, h, w)
+    img = torch.where(covered, attr.reshape(b, h, w, c).permute(0, 3, 1, 2),
+                      attr.new_tensor(background))
+    return img, covered.to(xs.dtype)

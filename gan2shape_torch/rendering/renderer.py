@@ -1,5 +1,6 @@
 """Camera intrinsics, rigid warps, depth->normals and depth-map re-rendering
-under novel views (the hot path of all three method steps).
+under novel views (the hot path of all three method steps), and the
+mesh-RGB renders and yaw/pitch sweeps used for visualisation.
 
 Conventions: pixel grid (x right, y down) with centers at integers;
 intrinsics from fov with c = (s-1)/2; view vector (rx, ry, rz, tx, ty, tz);
@@ -13,7 +14,9 @@ import numpy as np
 import torch
 
 from gan2shape_torch.ops.grid_sample import grid_sample, grid_sample_im_mask
-from gan2shape_torch.ops.rasterize import rasterize_depth
+from gan2shape_torch.ops.rasterize import (
+    grid_faces, rasterize_attributes, rasterize_depth,
+)
 
 EPS = 1e-7
 
@@ -62,12 +65,15 @@ class Renderer:
         self.rot_center_depth = config.get(
             "rot_center_depth", (min_depth + max_depth) / 2)
         self.fov = config.get("fov", 10)
-        # grid-mode candidate window (faces are ~1 px in the training regime)
+        # depth range of the mesh-RGB renders
+        self.renderer_min_depth = config.get("renderer_min_depth", 0.1)
+        self.renderer_max_depth = config.get("renderer_max_depth", 10.0)
+        # grid-mode candidate window (faces are ~1 px in the training regime);
+        # the other modes keep at least the exact z-buffer's reach of 5
         self.raster_window = config.get("raster_window", 3)
-        if config.get("raster_mode", "grid") != "grid":
-            raise NotImplementedError(
-                f"raster_mode {config['raster_mode']!r}: only 'grid' is "
-                "ported")
+        # 'grid', 'scatter' or 'invwarp' (ops/rasterize.py)
+        self.raster_mode = config.get("raster_mode", "grid")
+        self.raster_search = config.get("raster_search", 2)
 
         s = image_size
         f = (s - 1) / 2 / math.tan(self.fov / 2 * math.pi / 180)
@@ -77,6 +83,8 @@ class Renderer:
         inv_K = np.linalg.inv(K).astype(np.float32)
         self.K = torch.as_tensor(K, device=self.device)
         self.inv_K = torch.as_tensor(inv_K, device=self.device)
+        self.faces = torch.as_tensor(grid_faces(s, s),
+                                     device=self.device).long()
         xs, ys = np.meshgrid(np.arange(s, dtype=np.float32),
                              np.arange(s, dtype=np.float32), indexing="xy")
         self._grid_xy1 = torch.as_tensor(
@@ -139,18 +147,45 @@ class Renderer:
         z = torch.clamp_min(proj[..., 2], 1e-6)
         return proj[..., 0] / z, proj[..., 1] / z, pts[..., 2]
 
-    def warp_canon_depth(self, canon_depth, rot_mat, trans_xyz):
+    def warp_canon_depth(self, canon_depth, rot_mat, trans_xyz,
+                         raster_mode=None):
         """Re-render the canonical depth under a view, clamped to the depth
         range widened by the margin."""
         b, h, w = canon_depth.shape
         pts = self.get_warped_3d_grid(canon_depth, rot_mat,
                                       trans_xyz).reshape(b, -1, 3)
         xs, ys, zs = self._project_screen(pts)
+        mode = raster_mode or self.raster_mode
+        window = self.raster_window if mode == "grid" \
+            else max(self.raster_window, 5)
         lo = self.min_depth - self.margin
         hi = self.max_depth + self.margin
-        depth = rasterize_depth(xs, ys, zs, h, w, window=self.raster_window,
-                                near=lo, far=hi)
+        depth = rasterize_depth(xs, ys, zs, self.faces, h, w, window=window,
+                                near=lo, far=hi, mode=mode,
+                                search=self.raster_search)
         return torch.clamp(depth, lo, hi)
+
+    def render_mesh_rgb(self, im, pts, mask=None, background=1.0):
+        """Rasterize an image (B, C, H, W) as the vertex colours of the mesh
+        of camera-space points `pts` (B, H*W, 3) or (B, H, W, 3) through the
+        exact z-buffer.  Returns the image clipped to [-1, 1] and the
+        coverage, or, given a mask, the mask rendered the same way over
+        background 0."""
+        b, c, h, w = im.shape
+        xs, ys, zs = self._project_screen(pts.reshape(b, -1, 3))
+        window = max(self.raster_window, 5)
+
+        def render(attrs, background):
+            return rasterize_attributes(
+                xs, ys, zs, attrs.permute(0, 2, 3, 1).reshape(b, h * w, -1),
+                self.faces, h, w, window=window, near=self.renderer_min_depth,
+                far=self.renderer_max_depth, background=background)
+
+        img, cov = render(im, background)
+        img = torch.clamp(img, -1.0, 1.0)
+        if mask is not None:
+            return img, torch.clamp(render(mask, 0.0)[0], -1.0, 1.0)
+        return img, cov
 
     # ---------------- normals ----------------
 
@@ -172,13 +207,102 @@ class Renderer:
 
     # ---------------- view synthesis ----------------
 
-    def render_given_view(self, im, depth, view, mask=None):
-        """Render image (+ mask) under `view` by warping the depth,
-        inverse-warping a sampling grid and grid-sampling (the grid_sample
-        mode of the reference; mesh-texture rendering is not ported)."""
+    def render_given_view(self, im, depth, view, mask=None,
+                          grid_sample_mode=True, raster_mode=None):
+        """Render image (+ mask) under `view`.  grid_sample_mode: warp the
+        depth, inverse-warp a sampling grid and grid-sample (the training
+        path); otherwise rasterize the image as the warped mesh's vertex
+        colours."""
         rot_mat, trans_xyz = get_transform_matrices(view)
-        recon_depth = self.warp_canon_depth(depth, rot_mat, trans_xyz)
-        grid = self.get_inv_warped_2d_grid(recon_depth, rot_mat, trans_xyz)
-        if mask is not None:
-            return grid_sample_im_mask(im, mask, grid)
-        return grid_sample(im, grid, mode="bilinear")
+        if grid_sample_mode:
+            recon_depth = self.warp_canon_depth(depth, rot_mat, trans_xyz,
+                                                raster_mode=raster_mode)
+            grid = self.get_inv_warped_2d_grid(recon_depth, rot_mat,
+                                               trans_xyz)
+            if mask is not None:
+                return grid_sample_im_mask(im, mask, grid)
+            return grid_sample(im, grid, mode="bilinear")
+        pts = self.get_warped_3d_grid(depth, rot_mat, trans_xyz)
+        img, m = self.render_mesh_rgb(im, pts, mask=mask)
+        return (img, m) if mask is not None else img
+
+    def _sweep(self, im, depth, axis, angles, v_before, v_after,
+               grid_sample_mode, grid_3d):
+        """Frames (B, T, C, H, W) rotated by each angle about x (axis 0) or
+        y (axis 1): grid-sampled through the 'scatter' depth, or the mesh
+        `grid_3d` (B, N, 3) in the v_before frame rendered in colour."""
+        b = im.shape[0]
+        frames = []
+        for angle in angles:
+            rvec = [0.0] * 3
+            rvec[axis] = angle
+            if grid_sample_mode:
+                view = im.new_tensor(rvec + [0.0] * 3).reshape(1, 6)
+                if v_before is not None:
+                    view = view - v_before
+                frames.append(self.render_given_view(
+                    im, depth, view, raster_mode="scatter"))
+                continue
+            rot, _ = get_transform_matrices(im.new_tensor(rvec).reshape(1, 3))
+            pts = self.rotate_pts(grid_3d, rot.expand(b, 3, 3))
+            if v_after is not None:
+                rot_a, trans_a = get_transform_matrices(v_after)
+                pts = self.translate_pts(self.rotate_pts(pts, rot_a), trans_a)
+            frames.append(self.render_mesh_rgb(im, pts)[0])
+        return torch.stack(frames, 1)
+
+    def _sweep_mesh(self, depth, v_before, crop_mesh=None):
+        """The depth's camera-space mesh (B, N, 3), border-flattened by
+        `crop_mesh` and brought into the v_before frame."""
+        b = depth.shape[0]
+        grid_3d = self.depth_to_3d_grid(depth)
+        if crop_mesh is not None:
+            grid_3d = _apply_crop_mesh(grid_3d, crop_mesh)
+        grid_3d = grid_3d.reshape(b, -1, 3)
+        if v_before is not None:
+            rot_mat, trans_xyz = get_transform_matrices(v_before)
+            grid_3d = self.rotate_pts(self.translate_pts(grid_3d, -trans_xyz),
+                                      rot_mat.transpose(1, 2))
+        return grid_3d
+
+    def render_yaw(self, im, depth, v_before=None, v_after=None,
+                   rotations=None, maxr=90, nsample=9, grid_sample_mode=False,
+                   crop_mesh=None):
+        """Yaw sweep for visualisation: (B, T, C, H, W), T = nsample angles
+        over [-maxr, maxr] degrees unless `rotations` (radians) are given."""
+        if rotations is None:
+            rotations = np.linspace(-math.pi / 180 * maxr,
+                                    math.pi / 180 * maxr, nsample)
+        grid_3d = self._sweep_mesh(depth, v_before, crop_mesh)
+        return self._sweep(im, depth, 1, np.asarray(rotations), v_before,
+                           v_after, grid_sample_mode, grid_3d)
+
+    def render_view(self, im, depth, v_before=None, maxr=(20, 90),
+                    nsample=(5, 9), grid_sample_mode=False):
+        """A yaw sweep then a pitch sweep, concatenated on the frame axis."""
+        yaw = self.render_yaw(im, depth, v_before=v_before, maxr=maxr[1],
+                              nsample=nsample[1],
+                              grid_sample_mode=grid_sample_mode)
+        rot_p = np.linspace(-math.pi / 180 * maxr[0], math.pi / 180 * maxr[0],
+                            nsample[0])
+        pitch = self._sweep(im, depth, 0, rot_p, v_before, None,
+                            grid_sample_mode,
+                            self._sweep_mesh(depth, v_before))
+        return torch.cat([yaw, pitch], 1)
+
+
+def _apply_crop_mesh(grid_3d, crop_mesh):
+    """Flatten the border geometry before a sweep: the `top` / `bottom` rows
+    take the y and z of the first row inside, the `left` / `right` columns
+    the x and z of the first column inside."""
+    top, bottom, left, right = crop_mesh
+    g = grid_3d.clone()
+    if top > 0:
+        g[:, :top, :, 1:] = g[:, top:top + 1, :, 1:].clone()
+    if bottom > 0:
+        g[:, -bottom:, :, 1:] = g[:, -bottom - 1:-bottom, :, 1:].clone()
+    if left > 0:
+        g[:, :, :left, ::2] = g[:, :, left:left + 1, ::2].clone()
+    if right > 0:
+        g[:, :, -right:, ::2] = g[:, :, -right - 1:-right, ::2].clone()
+    return g

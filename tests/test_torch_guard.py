@@ -50,8 +50,10 @@ def test_port_import_loads_no_jax_module():
         "import sys, runpy\n"
         "import gan2shape_torch, gan2shape_torch.core, "
         "gan2shape_torch.convert, gan2shape_torch.models, "
-        "gan2shape_torch.ops, gan2shape_torch.rendering\n"
+        "gan2shape_torch.ops, gan2shape_torch.rendering, "
+        "gan2shape_torch.tools\n"
         "import gan2shape_torch.ops._cuda\n"
+        "import gan2shape_torch.tools.check_raster\n"
         "sys.argv = ['chip_smoke.py', '--help']\n"
         "try:\n"
         "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"

@@ -5,8 +5,8 @@ also runs where only the port is installed:
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
 The fetch is bit-exact; the splat's atomics reorder colliding adds, so it is
-held to a few ulps; the raster payload buffers and winner keys are
-bit-exact."""
+held to a few ulps; the raster payload buffers and winner keys, and the
+`raster_mega` triple, are bit-exact."""
 
 import numpy as np
 import pytest
@@ -14,8 +14,8 @@ import torch
 
 from gan2shape_torch.ops import _cuda
 from gan2shape_torch.ops.rasterize import (
-    SENTINEL, build_winner_buffers_plain, dense_winner_plain, raster_place,
-    raster_tests,
+    SENTINEL, build_winner_buffers_plain, dense_winner, dense_winner_plain,
+    raster_mega, raster_place, raster_tests,
 )
 from gan2shape_torch.ops.splat_window import (
     fetch2x2, fetch2x2_plain, splat2x2, splat2x2_plain,
@@ -91,3 +91,21 @@ def test_raster_kernels_match_plain(rng, cuda, s, b, window):
     assert _cuda.LAUNCHES["raster_tests"] == 1
     assert torch.equal(key, dense_winner_plain(ref, s, s, window, near, far))
     assert float((key != SENTINEL).float().mean()) > 0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,b", [(64, 4), (128, 4)])
+def test_raster_mega_matches_buffers_path(rng, cuda, s, b):
+    near, far, window = 0.8, 1.2, 5
+    vx, vy, vz = _warp(rng, b, s)
+    want = dense_winner(vx, vy, vz, window, near, far)
+    _cuda.reset_launches()
+    got = raster_mega(vx.to(cuda), vy.to(cuda), vz.to(cuda), window, near,
+                      far)
+    # the B3 entry is one placement (two place_kernel launches) and one
+    # tests_kernel launch
+    assert _cuda.LAUNCHES["raster_place"] == 2
+    assert _cuda.LAUNCHES["raster_tests"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert float(want[2].float().mean()) > 0.5

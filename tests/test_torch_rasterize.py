@@ -3,10 +3,11 @@ training-scale warps at 64 px:
 
   * placement buffers and winner keys bit-equal to `_build_winner_buffers` +
     `_dense_winner_xla` (window 3 and 5; agreement >= 0.999 asserted,
-    exact expected);
+    exact expected), and so the (cell, parity, covered) of `raster_mega`;
   * covered pixels agree with the exact `_winner_pass` z-buffer (>= 0.998);
   * depth within 1e-5, vertex gradients within 5e-5 relative;
-  * renderer geometry, normals, warps and render_given_view.
+  * renderer geometry, normals, warps, `warp_canon_depth` in each raster
+    mode and render_given_view.
 
 The raster kernels are held against the plain versions in
 test_torch_kernels.py."""
@@ -22,8 +23,9 @@ from scipy.ndimage import gaussian_filter
 
 from gan2shape_tpu.rendering import renderer as j_render
 
+from gan2shape_torch.ops import _cuda
 from gan2shape_torch.ops.rasterize import (
-    build_winner_buffers_plain, decode_key, dense_winner_plain,
+    build_winner_buffers_plain, decode_key, dense_winner_plain, raster_mega,
     rasterize_depth,
 )
 from gan2shape_torch.rendering import renderer as t_render
@@ -94,6 +96,14 @@ def test_winner_buffers_and_keys_match_jax(warps, window):
              & (_np(cov) == np.asarray(j_cov)))
     assert agree.mean() >= 0.999, agree.mean()
     assert agree.all()  # the expected result: bit-exact
+    # the B3 entry (`_raster_mega_pallas`'s contract), its plain version
+    _cuda.reset_launches()
+    got = [_np(a) for a in raster_mega(T(vx), T(vy), T(vz), window, NEAR,
+                                       FAR)]
+    assert all(v == 0 for v in _cuda.LAUNCHES.values())
+    assert [a.dtype for a in got] == [np.float32, np.float32, np.bool_]
+    for g, j in zip(got, (j_cell, j_par, j_cov)):
+        np.testing.assert_array_equal(g, np.asarray(j))
 
 
 def test_covered_pixels_agree_with_exact_zbuffer(warps):
@@ -127,7 +137,7 @@ def test_rasterize_depth_and_vertex_grads_match_jax(warps, rng):
                                 for a in (vx, vy, vz)))
     jg = vjp(jnp.asarray(g))
     ts = [T(a.reshape(b, -1)).requires_grad_(True) for a in (vx, vy, vz)]
-    got = rasterize_depth(*ts, S, S, window=3, near=NEAR, far=FAR)
+    got = rasterize_depth(*ts, None, S, S, window=3, near=NEAR, far=FAR)
     (got * T(g)).sum().backward()
     np.testing.assert_allclose(_np(got), np.asarray(want), atol=1e-5)
     for t, j in zip(ts, jg):
@@ -136,11 +146,19 @@ def test_rasterize_depth_and_vertex_grads_match_jax(warps, rng):
         assert err <= 5e-5, err
 
 
-def test_renderer_rejects_unported_raster_mode():
-    t_render.Renderer(dict(CFG, raster_mode="grid"), S, 0.9, 1.1)
-    for mode in ("scatter", "invwarp"):
-        with pytest.raises(NotImplementedError, match=mode):
-            t_render.Renderer(dict(CFG, raster_mode=mode), S, 0.9, 1.1)
+@pytest.mark.parametrize("mode", ["grid", "scatter", "invwarp"])
+def test_renderer_raster_modes_match_jax(warps, mode):
+    """Each configured raster mode's `warp_canon_depth` against JAX's."""
+    # three views: the shapes test_renderer_geometry_matches_jax compiles
+    depth, views = warps[0][1:], warps[1][1:]
+    jr = j_render.Renderer(dict(CFG, raster_mode=mode), S, 0.9, 1.1)
+    tr = t_render.Renderer(dict(CFG, raster_mode=mode), S, 0.9, 1.1)
+    assert tr.raster_mode == mode
+    rot, trans = j_render.get_transform_matrices(jnp.asarray(views))
+    want = np.asarray(jr.warp_canon_depth(jnp.asarray(depth), rot, trans))
+    trot, ttrans = t_render.get_transform_matrices(T(views))
+    np.testing.assert_allclose(
+        _np(tr.warp_canon_depth(T(depth), trot, ttrans)), want, atol=1e-5)
 
 
 def test_renderer_geometry_matches_jax(rng):

@@ -20,11 +20,15 @@ weight decay (AdamW) keeps the trajectories within theirs and puts the MAD
 at 2.02e-2, just over its limit, so the optimizer and the per-step
 parameter subsets are also held exactly, by the first two tests.
 
-The JAX side rasterizes in its exact 'scatter' mode: its grid mode unrolls
-8*window^2 candidate tests into one XLA graph whose CPU compile inside the
-step gradients costs minutes.  The port's grid winner is held bit-equal to
-the JAX grid path in test_torch_rasterize.py, and on these near-identity
-warps both modes pick the same faces."""
+The JAX side rasterizes in its exact 'scatter' mode, once: its grid mode
+unrolls 8*window^2 candidate tests into one XLA graph whose CPU compile
+inside the step gradients costs minutes.  The port runs in each of 'grid'
+(its training path, whose winner is held bit-equal to the JAX grid path in
+test_torch_rasterize.py) and 'scatter' (like for like).  The scatter case
+measures a depth MAD of 1.713e-2 against a floor of 4.50e-3 and a largest
+relative loss gap of 3.83e-3, no closer than grid mode's, so both are held
+to the same limits: the gap comes from Adam's sign noise, not the
+rasterizer."""
 
 import numpy as np
 import jax
@@ -90,10 +94,11 @@ def test_step_subsets_match_jax():
         assert {id(p) for p in held} == {id(p) for p in want}, step
 
 
-def _torch_fit(params, frozen, image, latent, pool, grad_noise=None):
-    """The port's fit from the JAX init; with `grad_noise` (a seed) every
-    gradient is scaled by 1 + 1e-7 * N(0, 1) before its Adam step."""
-    tt = Trainer(CFG, seed=0, device="cpu")
+def _torch_fit(mode, params, frozen, image, latent, pool, grad_noise=None):
+    """The port's fit from the JAX init in raster mode `mode`; with
+    `grad_noise` (a seed) every gradient is scaled by 1 + 1e-7 * N(0, 1)
+    before its Adam step."""
+    tt = Trainer(dict(CFG, raster_mode=mode), seed=0, device="cpu")
     jax2torch.load_into(tt.model, params, frozen)
     tt.model.step2_sample = lambda g, collected, n: tuple(
         torch.from_numpy(a.copy()) for a in pool)
@@ -117,7 +122,8 @@ def _torch_fit(params, frozen, image, latent, pool, grad_noise=None):
 
 
 @pytest.fixture(scope="module")
-def fitted():
+def jax_fitted():
+    """The JAX fit, once, in 'scatter' mode."""
     rng = np.random.default_rng(0)
     image = rng.uniform(-1, 1, (3, S, S)).astype(np.float32)
     latent = rng.standard_normal(512).astype(np.float32)
@@ -148,14 +154,20 @@ def fitted():
         mp.setattr(jax.lax, "scan", unrolled_scan)
         jh = jt.fit([(image, latent, 0)], stages=STAGES)
     _, jdepth = jt.evaluate(jax.numpy.asarray(image[None]))
+    return (params, frozen, image, latent, (pool_im, pool_mask)), jh, \
+        np.asarray(jdepth)
 
+
+@pytest.fixture(scope="module", params=["grid", "scatter"])
+def fitted(request, jax_fitted):
+    """The port's fit in each raster mode, with its sign-noise twin, against
+    the one JAX fit."""
+    inputs, jh, jdepth = jax_fitted
     _cuda.reset_launches()
-    pool = (pool_im, pool_mask)
-    th, tdepth = _torch_fit(params, frozen, image, latent, pool)
+    th, tdepth = _torch_fit(request.param, *inputs)
     launches = dict(_cuda.LAUNCHES)
-    _, tdepth_noisy = _torch_fit(params, frozen, image, latent, pool,
-                                 grad_noise=1)
-    return jh, th, np.asarray(jdepth), tdepth, tdepth_noisy, launches
+    _, tdepth_noisy = _torch_fit(request.param, *inputs, grad_noise=1)
+    return jh, th, jdepth, tdepth, tdepth_noisy, launches
 
 
 def test_fit_loss_trajectories_match_jax(fitted):
@@ -173,7 +185,8 @@ def test_fit_final_depth_within_sign_noise_floor(fitted):
     assert tdepth.shape == jdepth.shape == (1, S, S)
     mad = np.abs(tdepth - jdepth).mean()
     floor = np.abs(tdepth - tdepth_noisy).mean()
-    # measured: MAD 1.72e-2, floor 6.0e-3
+    # measured: grid MAD 1.72e-2, floor 6.0e-3; scatter MAD 1.71e-2,
+    # floor 4.5e-3
     assert mad <= 2e-2, (mad, floor)
     assert mad <= 4 * floor, (mad, floor)
 
