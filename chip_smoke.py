@@ -7,9 +7,12 @@ Phases, each of which must pass:
   2. build the CUDA kernels from gan2shape_torch/csrc (one nvcc per source,
      all at once) into build/kernels/;
   3. hold every kernel against its plain PyTorch version on the card at the
-     main path's shapes (the raster kernels at windows 3 and 5), and time
-     the kernel, the plain version and, where one exists, one PyTorch call
-     of the same function (a yardstick only);
+     main path's shapes (the raster kernels at windows 3 and 5, their keys
+     bit-equal), and time the kernel's wrapper, the plain version and, where
+     one exists, one PyTorch call of the same function (a yardstick only), by
+     CUDA events per call; beside each wrapper time, the kernel's own device
+     time per launch, from torch.profiler by kernel name, and the least time
+     the card could take for what the function must do on this data;
   4. the rasterizer check (`gan2shape_torch.tools.check_raster`, the path of
      `raster_mega`, the counterpart of the JAX `_raster_mega_pallas`) at 64
      and 128 px, with the launch counts zeroed just before and read just
@@ -31,6 +34,12 @@ Phases, each of which must pass:
 
 Any failure exits non-zero before the last line.  Kernel builds and run
 outputs stay inside the checkout (build/).
+
+    python3 chip_smoke.py --kernels
+
+runs phases 1-3 only and ends the same way.  It times whatever kernel
+sources the checkout holds, so two builds are compared on one card by
+running it in turns in two checkouts (the recipe is in README.md).
 """
 
 import json
@@ -76,6 +85,12 @@ KERNELS = {
 # as raster_place) and tests_kernel (counted as raster_tests)
 SERVED_BY = {"raster_mega": {"place_kernel": "raster_place",
                              "tests_kernel": "raster_tests"}}
+# the CUDA kernel names (as torch.profiler reports them) behind each entry
+KERNEL_NAMES = {"raster_place": ("place_kernel",),
+                "raster_tests": ("tests_kernel",),
+                "fetch2x2": ("fetch2x2_kernel",),
+                "splat2x2": ("splat2x2_kernel",),
+                "raster_mega": ("place_kernel", "tests_kernel")}
 # the kernels each driven path must launch
 MAIN_PATH = ("raster_place", "raster_tests", "fetch2x2", "splat2x2")
 CHECK_PATH = ("raster_place", "raster_tests", "fetch2x2")
@@ -94,6 +109,12 @@ def card_line():
         "nvidia-smi: " + out.stderr.strip()
 
 
+def bound_ms(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def cuda_ms(fn, reps=30, warmup=3):
     """Mean milliseconds per call by CUDA events, after warm-up."""
     import torch
@@ -110,10 +131,62 @@ def cuda_ms(fn, reps=30, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, n_ops):
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def device_events(prof):
+    """The device activities of a torch.profiler run: kernels, copies and
+    memsets, not the user-annotation ranges it also puts on the device."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_times(fn, reps=30, warmup=3, attempts=3):
+    """Device time of what `fn` launches, by name, from torch.profiler over
+    `reps` calls after warm-up: {name: (ms per launch, launches per call)}.
+    A window in which the profiler delivered no device activity is taken
+    again, up to `attempts` times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    for _ in range(attempts):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = {}
+        for e in device_events(prof):
+            us, n = total.get(e.name, (0.0, 0))
+            total[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        if total:
+            return {k: (us / n / 1e3, n / reps)
+                    for k, (us, n) in total.items()}
+    raise RuntimeError(f"torch.profiler recorded no device activity in "
+                       f"{attempts} windows")
+
+
+def device_summary(times, names):
+    """(device ms per launch of the kernels whose names contain one of
+    `names`, device ms per call of everything the call launched, that
+    breakdown as {short name: [ms per launch, launches per call]})."""
+    own = [(ms, n) for k, (ms, n) in times.items()
+           if any(x in k for x in names)]
+    if not own:
+        raise RuntimeError(f"no device time recorded for {names}")
+    launches = sum(n for _, n in own)
+    per_launch = sum(ms * n for ms, n in own) / launches
+    per_call = sum(ms * n for ms, n in times.values())
+    return per_launch, per_call, {short_name(k): [ms, n]
+                                  for k, (ms, n) in times.items()}
+
+
+def short_name(kernel):
+    """A kernel's name without its return type and argument list."""
+    name = kernel.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0].strip()[:60]
 
 
 def check(cond, what):
@@ -152,38 +225,59 @@ def training_warp(renderer, b, seed):
             zs.reshape(b, s, s).contiguous())
 
 
-def inside_candidates(bufs, h, w, window, near, far):
-    """How many candidate tests this data covers (they do the depth half of
-    the key arithmetic), by the plain version's own arithmetic."""
-    import torch
+def raster_work(bufs, h, w, window, near, far):
+    """What the candidate tests must do on this data, by the plain version's
+    own arithmetic: the slots some pixel tests that can cover a pixel (a
+    face, |denom| > 0.5), those slots' (slot, offset) tests inside the image,
+    and the candidates that cover their pixel.  Returns (slots, offset
+    tests, covered candidates, all candidates)."""
     from gan2shape_torch.ops import rasterize as R
+    b = bufs.shape[1]
     pad = window + 1
     n_faces = (h - 1) * (w - 1)
-    n = 0
+    live = []
+    for parity in range(2):
+        dx0, dy0, dx1, dy1, dx2, dy2 = bufs[parity, :, :, :, :6].float(
+            ).unbind(3)
+        cell = bufs[parity, :, :, :, 9]
+        denom = (dy1 - dy2) * (dx0 - dx2) + (dx2 - dx1) * (dy0 - dy2)
+        live.append((cell >= 0) & (denom.abs() > 0.5))  # (B, 2, 2, hp, wp)
+    n_slots = sum(int(m[..., pad - window + 1:pad + h,
+                        pad - window + 1:pad + w].sum()) for m in live)
+    n_tests = n_inside = 0
     for parity in range(2):
         for oy in range(window):
-            for sy in range(2):
-                for ox in range(window):
+            for ox in range(window):
+                n_tests += int(live[parity][..., pad - oy:pad - oy + h,
+                                            pad - ox:pad - ox + w].sum())
+                for sy in range(2):
                     for sx in range(2):
                         sl = bufs[parity, :, sy, sx, :, pad - oy:pad - oy + h,
                                   pad - ox:pad - ox + w].float()
                         key = R._cand_key_int(*sl.unbind(1), ox, oy, parity,
                                               n_faces, near, far)
-                        n += int((key != R.SENTINEL).sum())
-    return n
+                        n_inside += int((key != R.SENTINEL).sum())
+    return n_slots, n_tests, n_inside, 2 * 4 * window * window * b * h * w
 
 
 # ---------------- phase 3: kernels against plain versions ----------------
 
 
 def raster_ops(bufs, b, s, window, near, far):
-    """Operations of placement and of the candidate tests at these inputs:
-    ~60 a face; ~25 a candidate test and ~17 more for each candidate this
-    data covers.  Returns (placement, tests, covered, candidates)."""
-    n_cand = 2 * 4 * window * window * b * s * s
-    n_inside = inside_candidates(bufs, s, s, window, near, far)
-    return (2 * b * (s - 1) ** 2 * 60, 25 * n_cand + 17 * n_inside,
-            n_inside, n_cand)
+    """f32 operations of placement and of the candidate tests at these
+    inputs.  Placement: ~60 a face.  The tests need 15 a slot that can cover
+    a pixel (a, bq, e, d, f, denom and its test, the three
+    r_lo + r * r_step terms), 8 for each of its offset tests (px2, py2, the
+    two numerators) and 18 more where the candidate covers its pixel (the
+    two divisions, l2, the three comparisons, the depth and its
+    quantization).  The yardstick of earlier versions, ~25 every candidate
+    and ~17 a covering one, counts more than that (every offset of every
+    slot, empty ones included) and is kept only to compare with them.
+    Returns (placement, tests, yardstick, covered, candidates)."""
+    n_slots, n_tests, n_inside, n_cand = raster_work(bufs, s, s, window,
+                                                     near, far)
+    return (2 * b * (s - 1) ** 2 * 60, 15 * n_slots + 8 * n_tests
+            + 18 * n_inside, 25 * n_cand + 17 * n_inside, n_inside, n_cand)
 
 
 def check_raster(results):
@@ -218,49 +312,59 @@ def check_raster(results):
                 agree_t = float((key_on_ref == ref_key).float().mean())
                 worst = max(worst, int((key.to(where).long()
                                         - ref_key.long()).abs().max()))
-                check(buf_eq and agree >= 0.9999 and agree_t >= 0.9999
+                check(buf_eq and agree == 1.0 and agree_t == 1.0
                       and covered > 0.5,
                       f"raster {s}px B={b} window {window} vs plain on "
                       f"{where}: payload buffers equal {buf_eq}, key "
                       f"agreement {agree:.6f}, tests kernel alone "
-                      f"{agree_t:.6f} (>= 0.9999), covered {covered:.4f}")
-    # timings and bounds at the main path's largest call (B=16, 128 px),
-    # at window 3 (the main path's: the kernels line) and window 5
-    s, b = 128, 16
+                      f"{agree_t:.6f} (== 1), covered {covered:.4f}")
+    # timings and bounds at the main path's calls, 128 px at B=16 (step 2's
+    # pool, step 3) and B=1 (steps 1 and 3), at window 3 (the main path's;
+    # B=16 goes into the kernels line) and window 5
+    s = 128
     renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
-    vx, vy, vz = training_warp(renderer, b, seed=7)
-    for window in (3, 5):
+    for b, window in ((16, 3), (16, 5), (1, 3), (1, 5)):
+        vx, vy, vz = training_warp(renderer, b, seed=7)
         bufs = R.raster_place(vx, vy, vz, window, near, far)
-        place_ops, tests_ops, n_inside, n_cand = raster_ops(
+        place_ops, tests_ops, yard_ops, n_inside, n_cand = raster_ops(
             bufs, b, s, window, near, far)
         # the vertex fields in, the payload buffers between (the collision
         # key scratch is not counted), the keys out
         buf_bytes = bufs.numel() * 2
+        tests_bytes = buf_bytes + b * s * s * 4
         place_bound = bound_ms(3 * b * s * s * 4 + buf_bytes, place_ops)
-        tests_bound = bound_ms(buf_bytes + b * s * s * 4, tests_ops)
+        tests_bound = bound_ms(tests_bytes, tests_ops)
         timings = {
             "raster_place": (
-                cuda_ms(lambda: R.raster_place(vx, vy, vz, window, near,
-                                               far)),
+                lambda: R.raster_place(vx, vy, vz, window, near, far),
                 cuda_ms(lambda: R.build_winner_buffers_plain(
                     vx, vy, vz, window, near, far), reps=10),
-                place_bound),
+                place_bound, None),
             "raster_tests": (
-                cuda_ms(lambda: R.raster_tests(bufs, s, s, window, near,
-                                               far)),
+                lambda: R.raster_tests(bufs, s, s, window, near, far),
                 cuda_ms(lambda: R.dense_winner_plain(bufs, s, s, window,
                                                      near, far), reps=5),
-                tests_bound),
+                tests_bound, bound_ms(tests_bytes, yard_ops)[0]),
         }
-        for name, (ms, plain_ms, (bms, by)) in timings.items():
-            if window == 3:
+        for name, (fn, plain_ms, (bms, by), yard) in timings.items():
+            ms = cuda_ms(fn)
+            dev, dev_call, parts = device_summary(device_times(fn),
+                                                  KERNEL_NAMES[name])
+            extra = {} if yard is None else {"yardstick_ms": yard}
+            if (b, window) == (16, 3):
                 results[name] = {"max_abs_err": float(worst), "ms": ms,
+                                 "device_ms": dev,
+                                 "wrapper_device_ms": dev_call,
                                  "plain_ms": plain_ms, "bound_ms": bms,
-                                 "bound_by": by, "library_ms": None}
-            print(f"TIME {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {bms:.4f} ms ({by}), at B={b} {s}px window "
-                  f"{window} ({n_inside} of {n_cand} candidates covered)",
-                  flush=True)
+                                 "bound_by": by, "library_ms": None,
+                                 "library_device_ms": None, **extra}
+            yard_text = "" if yard is None else \
+                f", earlier yardstick {yard:.4f} ms"
+            print(f"TIME {name}: {ms:.4f} ms, device {dev:.4f} ms per "
+                  f"launch ({dev_call:.4f} ms per call: {parts}), plain "
+                  f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}"
+                  f"{yard_text}), at B={b} {s}px window {window} "
+                  f"({n_inside} of {n_cand} candidates covered)", flush=True)
 
 
 def window_inputs(b, c, s, seed):
@@ -316,6 +420,10 @@ def check_window(results):
         worst_splat = max(worst_splat, err)
         check(err <= tol, f"splat2x2 C={c} B={b}: max abs err {err:.3e}"
               f" at scale {scale:.2f} (<= {tol:.3e})")
+        # the atomics' order varies from run to run: say whether it did here
+        same = bool(torch.equal(d, W.splat2x2(gr, iy, ix, (b, c, s, s))))
+        print(f"INFO splat2x2 C={c} B={b}: two calls bitwise equal {same}",
+              flush=True)
     # timings at each kernel's largest main-path call, B=16 and 128 px: the
     # fetch at C=6 (image + mask), the splat at C=3
     b, s = 16, 128
@@ -326,24 +434,35 @@ def check_window(results):
         bms, by = bound_ms(io_bytes, b * s * s * 4 * c)
         if name == "fetch2x2":
             flat = src.reshape(b, -1)
-            ms = cuda_ms(lambda: W.fetch2x2(src, iy, ix))
+            fn = lambda: W.fetch2x2(src, iy, ix)  # noqa: E731
             plain = cuda_ms(lambda: W.fetch2x2_plain(src, iy, ix))
-            lib = cuda_ms(lambda: torch.gather(flat, 1, idx.reshape(b, -1)))
+            lib_fn = lambda: torch.gather(flat, 1,  # noqa: E731
+                                          idx.reshape(b, -1))
             err = worst_fetch
         else:
             zeros = torch.zeros(b, c * s * s, device="cuda")
             gflat = gr.reshape(b, -1)
-            ms = cuda_ms(lambda: W.splat2x2(gr, iy, ix, (b, c, s, s)))
+            fn = lambda: W.splat2x2(gr, iy, ix, (b, c, s, s))  # noqa: E731
             plain = cuda_ms(lambda: W.splat2x2_plain(gr, iy, ix,
                                                      (b, c, s, s)))
-            lib = cuda_ms(lambda: torch.scatter_add(
-                zeros, 1, idx.reshape(b, -1), gflat))
+            lib_fn = lambda: torch.scatter_add(  # noqa: E731
+                zeros, 1, idx.reshape(b, -1), gflat)
             err = worst_splat
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                         "bound_ms": bms, "bound_by": by, "library_ms": lib}
-        print(f"TIME {name}: {ms:.4f} ms, plain {plain:.4f} ms, library "
-              f"{lib:.4f} ms, bound {bms:.4f} ms ({by}), at B={b} {s}px "
-              f"C={c}", flush=True)
+        ms = cuda_ms(fn)
+        times = device_times(fn)
+        dev, dev_call, parts = device_summary(times, KERNEL_NAMES[name])
+        lib = cuda_ms(lib_fn)
+        lib_times = device_times(lib_fn)
+        lib_dev = sum(m * n for m, n in lib_times.values())
+        results[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev,
+                         "wrapper_device_ms": dev_call, "plain_ms": plain,
+                         "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                         "library_device_ms": lib_dev}
+        print(f"TIME {name}: {ms:.4f} ms, device {dev:.4f} ms per launch "
+              f"({dev_call:.4f} ms per call: {parts}), plain {plain:.4f} ms, "
+              f"library {lib:.4f} ms (device {lib_dev:.4f} ms: "
+              f"{ {short_name(k): v for k, v in lib_times.items()} }), bound "
+              f"{bms:.4f} ms ({by}), at B={b} {s}px C={c}", flush=True)
 
 
 def check_raster_gradients():
@@ -418,21 +537,32 @@ def run_check_path(results):
     renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
     vx, vy, vz = training_warp(renderer, b, seed=11)
     bufs = R.raster_place(vx, vy, vz, window, near, far)
-    place_ops, tests_ops, n_inside, n_cand = raster_ops(
+    place_ops, tests_ops, yard_ops, n_inside, n_cand = raster_ops(
         bufs, b, s, window, near, far)
     # the fused function's own inputs and outputs: the vertex fields in,
     # cell and parity (f32) and covered (bool) out
-    bms, by = bound_ms(3 * b * s * s * 4 + b * s * s * 9,
-                       place_ops + tests_ops)
-    ms = cuda_ms(lambda: R.raster_mega(vx, vy, vz, window, near, far))
+    io_bytes = 3 * b * s * s * 4 + b * s * s * 9
+    bms, by = bound_ms(io_bytes, place_ops + tests_ops)
+    yard = bound_ms(io_bytes, place_ops + yard_ops)[0]
+    fn = lambda: R.raster_mega(vx, vy, vz, window, near, far)  # noqa: E731
+    ms = cuda_ms(fn)
+    # its device ms: the place_kernel and tests_kernel launches of one call
+    dev, dev_call, parts = device_summary(device_times(fn),
+                                          KERNEL_NAMES["raster_mega"])
+    dev *= 3
     plain = cuda_ms(lambda: R.dense_winner(vx, vy, vz, window, near, far),
                     reps=5)
     results["raster_mega"] = {"max_abs_err": err, "ms": ms,
+                              "device_ms": dev, "wrapper_device_ms": dev_call,
                               "plain_ms": plain, "bound_ms": bms,
-                              "bound_by": by, "library_ms": None}
-    print(f"TIME raster_mega: {ms:.4f} ms, plain {plain:.4f} ms, bound "
-          f"{bms:.4f} ms ({by}), at B={b} {s}px window {window} "
-          f"({n_inside} of {n_cand} candidates covered)", flush=True)
+                              "bound_by": by, "library_ms": None,
+                              "library_device_ms": None,
+                              "yardstick_ms": yard}
+    print(f"TIME raster_mega: {ms:.4f} ms, device {dev:.4f} ms in its three "
+          f"kernel launches ({dev_call:.4f} ms per call: {parts}), plain "
+          f"{plain:.4f} ms, bound {bms:.4f} ms ({by}, earlier yardstick "
+          f"{yard:.4f} ms), at B={b} {s}px window {window} ({n_inside} of "
+          f"{n_cand} candidates covered)", flush=True)
     return launches
 
 
@@ -580,21 +710,14 @@ def profile_steps(trainer, img, lat, prior, collected, coll2, step_ms):
 
 
 def report_profile(name, prof, wall_us, step_ms, n):
-    import torch
-
-    # device activities only: kernels and copies, not the user-annotation
-    # ranges (Optimizer.step#...) that the profiler also puts on the device
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = device_events(prof)
     busy_us = sum(e.time_range.elapsed_us() for e in kernels)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
     ours = sum(v for k, v in by_name.items()
-               if any(s in k for s in ("place_kernel", "tests_kernel",
-                                       "fetch2x2_kernel",
-                                       "splat2x2_kernel")))
+               if any(s in k for names in KERNEL_NAMES.values()
+                      for s in names))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     busy_ms = busy_us / n / 1e3
     print(f"PROFILE {name}: device busy {busy_ms:.2f} ms/iter = "
@@ -608,9 +731,13 @@ def report_profile(name, prof, wall_us, step_ms, n):
               f"{k[:110]}", flush=True)
 
 
-def main():
+def main(argv):
     import torch
 
+    kernels_only = argv == ["--kernels"]
+    if argv and not kernels_only:
+        print(f"usage: python3 chip_smoke.py [--kernels] (got {argv})")
+        return 2
     if not torch.cuda.is_available():
         print("FAIL no CUDA device: this smoke run needs one GPU",
               flush=True)
@@ -637,14 +764,23 @@ def main():
         results = {}
         check_raster(results)
         check_window(results)
-        check_raster_gradients()
-        check_launches = run_check_path(results)
-        run_modes_and_renders()
-        launches = run_main_path()
+        if not kernels_only:
+            check_raster_gradients()
+            check_launches = run_check_path(results)
+            run_modes_and_renders()
+            launches = run_main_path()
     except Failed:
+        return 1
+    except RuntimeError as exc:  # a timing that found no device activity
+        print(f"FAIL {exc}", flush=True)
         return 1
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        if kernels_only:  # no path was driven: no launch counts
+            if name in results:
+                kernels.append({"name": name, "source": source,
+                                "launches": None, **results[name]})
+            continue
         # each entry's launches on the path that is its own: raster_mega's,
         # those of the kernels that serve it on the rasterizer check; the
         # others' on the main path
@@ -668,4 +804,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

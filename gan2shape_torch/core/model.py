@@ -32,10 +32,13 @@ from gan2shape_torch.rendering.renderer import Renderer, get_transform_matrices
 
 
 class ViewLightSampler:
-    """Multivariate-normal view/light sampler: mean + chol @ eps."""
+    """Multivariate-normal view/light sampler: mean + chol @ eps, on CUDA
+    unless the caller asks for the CPU (`resolve_device`)."""
 
     def __init__(self, view_mean, view_cov, light_mean, light_cov,
-                 view_scale=1.0, device="cpu"):
+                 view_scale=1.0, device=None):
+        device = resolve_device(device)
+
         def t(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
@@ -49,7 +52,7 @@ class ViewLightSampler:
         self.view_scale = view_scale
 
     @classmethod
-    def default(cls, view_scale=1.0, device="cpu"):
+    def default(cls, view_scale=1.0, device=None):
         """Neutral stats (zero mean, small isotropic covariance) for running
         without the reference's MVN files."""
         return cls(np.zeros(6), np.eye(6) * 0.04, np.zeros(4),

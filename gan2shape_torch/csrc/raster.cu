@@ -18,23 +18,64 @@
 //      slots of the JAX version amount to.  _raster_mega_pallas_v2 also drops
 //      faces displaced more than DY_CAP = 96 rows; this kernel, like the
 //      buffers path it is held to, keeps them.
-//   2. candidate tests: one thread per output pixel runs the
-//      2 parities x 4 phases x window^2 tests of _winner_tests and writes the
-//      int32 min key.
+//   2. candidate tests (tests_kernel): the 2 parities x 4 phases x window^2
+//      tests of _winner_tests per output pixel, and its int32 min key.  A
+//      block owns a 32 x 16 tile of one batch element (32 x 8 where the call
+//      has too few tiles to fill the card).  For each of the 8 (parity, sy,
+//      sx) phases it decodes the slab of slots its pixels test (the tile plus
+//      a window-1 halo) and lists in shared memory only the slots that some
+//      offset can accept, with every term of _cand_key_int that does not
+//      depend on the offset (a, bq, e, denom, f, the three r_lo + r * r_step
+//      terms, the face id).  Empty and degenerate slots, most of the slab,
+//      cost nothing more.  Then one thread per listed slot runs its window^2
+//      offset tests: px2, py2 and the two numerators; a sign test that
+//      proves the candidate outside before its divisions (surely_negative);
+//      the two divisions, l2 and the inside test; and, where inside, the
+//      depth terms.  It merges the key into its pixel's minimum with a
+//      shared-memory atomicMin, which does not depend on order.  window is
+//      at most 5 (the grid mode's cap); the C entry refuses larger ones.
+//
+// How a phase's payloads reach the block.  Each thread reads its slots' 10
+// int16 channels with plain loads into registers and decodes them there;
+// only the listed slots' terms go to shared memory.  Three ways were timed
+// in turns on an H100 at B=16, 128 px (numbers in PERF.md): on the 32 x 16
+// tiles loading phase k at the top of phase k was fastest.  Loading phase
+// k+1 into registers while phase k tests was 8-23% slower: its 30 live
+// registers pushed the 64 that 4 blocks an SM allow into spills, and with 4
+// blocks an SM the others' tests already hide one block's loads.  The 32 x
+// 8 tiles of small calls keep that prefetch: there a block is alone on its
+// SM with 96 registers and no spill, and at B=1 it saved 7% at window 5
+// and nothing at window 3.  Staging the slab into shared memory by 4-byte
+// cp.async, double-buffered, was 14% slower at window 3 and 42% at window
+// 5, where the staged slab takes a block from 37 to 65 KB and an SM from 4
+// resident blocks to 3.  TMA cannot address the pinned
+// payload layout: a tensor map's row pitch must be a multiple of 16 bytes,
+// and a padded plane's row is W + 2 window + 2 int16, 280 bytes at W = 128,
+// window 5.
 //
 // Bit-exactness with the plain version: every float operation on the key path
 // is written with an explicit round-to-nearest intrinsic in the order the
 // JAX expression evaluates it, this file is built with --fmad=false, division
 // stays IEEE, and rounding is rintf (half to even, as jnp.round/torch.round).
+// Hoisting a term out of the offset loop does not change its value, and the
+// early reject drops only candidates that the inside test rejects.
 //
-// What bounds it on an H100: bytes.  At B=16, 128 px, window 3 the payload
-// buffers are 47 MB of int16 (2 parities x 4 phases x 10 channels of the
-// padded grid): placement writes them, the tests read them, ~14 us each at
-// 3.35 TB/s.  The tests' arithmetic (~25 f32 operations per candidate, ~17
-// more for the few that cover the pixel, 72 candidates per pixel) is about
-// half of that time at the f32 rate.  Each test thread re-reads its
-// neighbours' slots, which the L1/L2 caches serve.  No gradient flows here:
-// the caller re-interpolates the winner's vertices differentiably.
+// What bounds it on an H100.  Placement: bytes.  At B=16, 128 px, window 3
+// the payload buffers are 47 MB of int16 (2 parities x 4 phases x 10
+// channels of the padded grid): placement writes them, the tests read them,
+// ~14 us each at 3.35 TB/s (~15 us at window 5).  The tests' arithmetic is
+// smaller: ~15 f32 operations per slot that holds a face, ~8 per offset
+// test of such a slot and ~18 more where the candidate covers its pixel, a
+// few us at the f32 rate, so bytes bound both windows.  (An older count of
+// ~25 per candidate, empty slots included, and ~17 per covering one put
+// window 5 at ~20 us of operations; chip_smoke keeps it as a yardstick.)  A
+// thread per pixel that decodes each of its candidates' slots from 10
+// scalar int16 loads ran 10-24x the bytes bound: every warp paid the whole
+// test for every candidate, since some lane's slot was always full.
+// Listing the full slots (about a fifth of the slab) and decoding each once
+// per block does the tests' arithmetic only where it can matter; each slot
+// is read 1.2x (window 3) to 1.4x (window 5) per phase.  No gradient flows
+// here: the caller re-interpolates the winner's vertices differentiably.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -138,70 +179,187 @@ __global__ void place_kernel(const float* __restrict__ vx,
   for (int k = 0; k < kChannels; ++k) dst[k * plane] = ch[k];
 }
 
-// _cand_key_int, operation for operation.
-__device__ __forceinline__ int cand_key(const float* c, int ox, int oy,
-                                        int parity, int n_faces,
-                                        const Quant& q) {
-  float dx0 = c[0], dy0 = c[1], dx1 = c[2], dy1 = c[3], dx2 = c[4],
-        dy2 = c[5], r0q = c[6], r1q = c[7], r2q = c[8], cell = c[9];
-  float px2 = __fsub_rn((float)(256 * ox), dx2);
-  float py2 = __fsub_rn((float)(256 * oy), dy2);
-  float a = __fsub_rn(dy1, dy2);
-  float bq = __fsub_rn(dx0, dx2);
-  float e = __fsub_rn(dx2, dx1);
-  float d = __fsub_rn(dy0, dy2);
-  float denom = __fadd_rn(__fmul_rn(a, bq), __fmul_rn(e, d));
-  bool ok_den = fabsf(denom) > 0.5f;
-  float safe = ok_den ? denom : 1.0f;
-  float l0 = __fdiv_rn(__fadd_rn(__fmul_rn(a, px2), __fmul_rn(e, py2)), safe);
-  float f = __fsub_rn(dy2, dy0);
-  float l1 = __fdiv_rn(__fadd_rn(__fmul_rn(f, px2), __fmul_rn(bq, py2)), safe);
-  float l2 = __fsub_rn(__fsub_rn(1.0f, l0), l1);
-  const float eps = -1e-5f;
-  bool inside = l0 >= eps && l1 >= eps && l2 >= eps && ok_den && cell >= 0.0f;
-  if (!inside) return kSentinel;
-  float t0 = __fmul_rn(l0, __fadd_rn(q.r_lo, __fmul_rn(r0q, q.r_step)));
-  float t1 = __fmul_rn(l1, __fadd_rn(q.r_lo, __fmul_rn(r1q, q.r_step)));
-  float t2 = __fmul_rn(l2, __fadd_rn(q.r_lo, __fmul_rn(r2q, q.r_step)));
-  float inv_z = __fadd_rn(__fadd_rn(t0, t1), t2);
-  float z = __fdiv_rn(1.0f, fmaxf(inv_z, 1e-12f));
-  float zq = __fmul_rn(__fsub_rn(z, q.near), q.depth_scale);
-  zq = fminf(fmaxf(zq, 0.0f), 16383.0f);
-  return ((int)zq << kFaceBits) | ((int)cell + parity * n_faces);
+// True only where l = RN(n / safe) < -1e-5, so the candidate is outside.
+// Proof: the signs of n and safe differ and |n| > RN(4e-5 |safe|) >=
+// 4e-5 |safe| (1 - 2^-24) (4e-5f is 4e-5 within 2^-24 relative), so the exact
+// quotient is below -3.9999e-5 and, rounding being monotone, so is l: below
+// eps = -1e-5 with a margin far above any rounding.  A zero n is never
+// rejected.  |safe| > 0.5 on every slot that reaches this test.
+__device__ __forceinline__ bool surely_negative(float n, float safe) {
+  return (__float_as_int(n) ^ __float_as_int(safe)) < 0 &&
+         fabsf(n) > __fmul_rn(4e-5f, fabsf(safe));
 }
 
-__global__ void tests_kernel(const int16_t* __restrict__ buf, int B, int H,
-                             int W, int pad, int window, Quant q,
-                             int* __restrict__ key_out) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)B * H * W) return;
-  int x = (int)(t % W);
-  int y = (int)((t / W) % H);
-  int b = (int)(t / ((long long)H * W));
-  int hp = H + 2 * pad;
-  int wp = W + 2 * pad;
-  int n_faces = (H - 1) * (W - 1);
-  long long plane = (long long)hp * wp;
-  int best = kSentinel;
-  float c[kChannels];
-  for (int parity = 0; parity < 2; ++parity) {
-    for (int oy = 0; oy < window; ++oy) {
-      for (int sy = 0; sy < 2; ++sy) {
-        for (int ox = 0; ox < window; ++ox) {
-          for (int sx = 0; sx < 2; ++sx) {
-            long long phase = ((long long)parity * B + b) * 4 + sy * 2 + sx;
-            const int16_t* src = buf + phase * kChannels * plane +
-                                 (long long)(y + pad - oy) * wp +
-                                 (x + pad - ox);
-            for (int k = 0; k < kChannels; ++k) c[k] = (float)src[k * plane];
-            int key = cand_key(c, ox, oy, parity, n_faces, q);
-            best = min(best, key);
-          }
+constexpr int kTestsTileX = 32;
+// 32 x 16 tiles where a call has at least two of them for each of an H100's
+// 132 SMs, 32 x 8 tiles (twice as many blocks) below that
+constexpr int kSmallGridTiles = 264;
+
+// One block: a kTestsTileX x TY tile of output pixels of one batch element.
+// For each of the 8 (parity, sy, sx) phases the block
+//   1. decodes the slab of slots its pixels test (the tile plus a WIN-1 halo
+//      above and left; each thread owns slots threadIdx.x + j * kThreads) and
+//      appends every slot that some offset can accept to a list in shared
+//      memory, with the terms of _cand_key_int that do not depend on the
+//      offset: a, bq, e, f, denom (safe), dx2, dy2, the three
+//      r_lo + r * r_step terms and the face id.  Empty slots (cell < 0) and
+//      degenerate ones (|denom| <= 0.5) cannot win at any offset, and they
+//      are most slots, so they cost nothing further.
+//   2. runs, one listed slot per thread, the WIN^2 offset-dependent tests of
+//      that slot and merges each covering candidate's key into its pixel's
+//      minimum with a shared-memory atomicMin.  The list's order depends on
+//      the atomics, but a minimum does not depend on order, so the keys are
+//      the same from run to run.
+// Each phase's int16 payloads are loaded into registers at the top of the
+// phase (32 x 16 tiles) or while the previous phase tests (32 x 8 tiles).
+template <int WIN, int TY>
+__global__ void __launch_bounds__(kThreads, TY == 16 ? 4 : 1)
+tests_kernel(const int16_t* __restrict__ buf, int B, int H, int W, int pad,
+             Quant q, int* __restrict__ key_out) {
+  constexpr int TX = kTestsTileX;
+  constexpr int SW = TX + WIN - 1;
+  constexpr int SH = TY + WIN - 1;
+  constexpr int NS = SW * SH;
+  constexpr int PER = (NS + kThreads - 1) / kThreads;
+  constexpr int NPIX = TX * TY;
+  // load phase k+1 while phase k tests only on the small tiles, whose blocks
+  // are alone on their SM and have registers to spare (see the file's note)
+  constexpr bool PREFETCH = TY == 8;
+  // the phase's list of slots that can cover a pixel; pos = slab index
+  __shared__ float s_dx2[NS], s_dy2[NS], s_a[NS], s_e[NS], s_f[NS], s_bq[NS],
+      s_safe[NS], s_z0[NS], s_z1[NS], s_z2[NS];
+  __shared__ int s_key[NS], s_pos[NS];
+  __shared__ int s_best[NPIX];
+  __shared__ int s_count[2];
+
+  const int b = blockIdx.z;
+  const int ty0 = blockIdx.y * TY;
+  const int tx0 = blockIdx.x * TX;
+  const int hp = H + 2 * pad;
+  const int wp = W + 2 * pad;
+  const int n_faces = (H - 1) * (W - 1);
+  const long long plane = (long long)hp * wp;
+  // padded row and column of slab slot 0: the slot that pixel (ty0, tx0)
+  // tests at offset (WIN-1, WIN-1)
+  const int r0 = ty0 + pad - (WIN - 1);
+  const int c0 = tx0 + pad - (WIN - 1);
+
+  int16_t raw[PER][kChannels];
+  auto load = [&](int k) {
+    const long long phase = ((long long)(k >> 2) * B + b) * 4 + (k & 3);
+    const int16_t* src = buf + phase * kChannels * plane;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      int i = threadIdx.x + j * kThreads;
+      int r = r0 + i / SW, c = c0 + i % SW;
+      bool in = i < NS && r < hp && c < wp;
+      const int16_t* p = src + (long long)r * wp + c;
+#pragma unroll
+      for (int ch = 0; ch < kChannels; ++ch)
+        raw[j][ch] = in ? p[ch * plane] : (int16_t)-1;
+    }
+  };
+
+  for (int i = threadIdx.x; i < NPIX; i += kThreads) s_best[i] = kSentinel;
+  if (threadIdx.x < 2) s_count[threadIdx.x] = 0;
+  const float eps = -1e-5f;
+  if (PREFETCH) load(0);
+  for (int k = 0; k < 8; ++k) {
+    const int parity = k >> 2;
+    // phase k-1's tests are done with the list; s_count[k & 1] is zero
+    __syncthreads();
+    if (!PREFETCH) load(k);
+    if (threadIdx.x == 0) s_count[(k + 1) & 1] = 0;
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      const int16_t* rw = raw[j];
+      if (i >= NS || rw[9] < 0) continue;
+      // _cand_key_int's offset-free terms, operation for operation
+      float dx0 = rw[0], dy0 = rw[1], dx1 = rw[2], dy1 = rw[3], dx2 = rw[4],
+            dy2 = rw[5], r0q = rw[6], r1q = rw[7], r2q = rw[8], cell = rw[9];
+      float a = __fsub_rn(dy1, dy2);
+      float bq = __fsub_rn(dx0, dx2);
+      float e = __fsub_rn(dx2, dx1);
+      float d = __fsub_rn(dy0, dy2);
+      float denom = __fadd_rn(__fmul_rn(a, bq), __fmul_rn(e, d));
+      if (!(fabsf(denom) > 0.5f)) continue;
+      const int o = atomicAdd(&s_count[k & 1], 1);
+      s_dx2[o] = dx2;
+      s_dy2[o] = dy2;
+      s_a[o] = a;
+      s_e[o] = e;
+      s_f[o] = __fsub_rn(dy2, dy0);
+      s_bq[o] = bq;
+      s_safe[o] = denom;
+      s_z0[o] = __fadd_rn(q.r_lo, __fmul_rn(r0q, q.r_step));
+      s_z1[o] = __fadd_rn(q.r_lo, __fmul_rn(r1q, q.r_step));
+      s_z2[o] = __fadd_rn(q.r_lo, __fmul_rn(r2q, q.r_step));
+      s_key[o] = (int)cell + parity * n_faces;
+      s_pos[o] = i;
+    }
+    if (PREFETCH && k < 7) load(k + 1);
+    __syncthreads();
+    const int n = s_count[k & 1];
+    for (int o = threadIdx.x; o < n; o += kThreads) {
+      const float dx2 = s_dx2[o], dy2 = s_dy2[o], a = s_a[o], e = s_e[o],
+                  f = s_f[o], bq = s_bq[o], safe = s_safe[o];
+      const int cell_key = s_key[o];
+      // the tile pixel that tests this slot at offset (oy, ox) is
+      // (sr + oy, sc + ox)
+      const int sr = s_pos[o] / SW - (WIN - 1);
+      const int sc = s_pos[o] % SW - (WIN - 1);
+#pragma unroll
+      for (int oy = 0; oy < WIN; ++oy) {
+        const int py = sr + oy;
+        if (py < 0 || py >= TY) continue;
+#pragma unroll
+        for (int ox = 0; ox < WIN; ++ox) {
+          const int px = sc + ox;
+          if (px < 0 || px >= TX) continue;
+          // the offset-dependent part of _cand_key_int, in its order
+          float px2 = __fsub_rn((float)(256 * ox), dx2);
+          float py2 = __fsub_rn((float)(256 * oy), dy2);
+          float n0 = __fadd_rn(__fmul_rn(a, px2), __fmul_rn(e, py2));
+          if (surely_negative(n0, safe)) continue;
+          float n1 = __fadd_rn(__fmul_rn(f, px2), __fmul_rn(bq, py2));
+          if (surely_negative(n1, safe)) continue;
+          float l0 = __fdiv_rn(n0, safe);
+          float l1 = __fdiv_rn(n1, safe);
+          float l2 = __fsub_rn(__fsub_rn(1.0f, l0), l1);
+          if (!(l0 >= eps && l1 >= eps && l2 >= eps)) continue;
+          float t0 = __fmul_rn(l0, s_z0[o]);
+          float t1 = __fmul_rn(l1, s_z1[o]);
+          float t2 = __fmul_rn(l2, s_z2[o]);
+          float inv_z = __fadd_rn(__fadd_rn(t0, t1), t2);
+          float z = __fdiv_rn(1.0f, fmaxf(inv_z, 1e-12f));
+          float zq = __fmul_rn(__fsub_rn(z, q.near), q.depth_scale);
+          zq = fminf(fmaxf(zq, 0.0f), 16383.0f);
+          atomicMin(&s_best[py * TX + px], ((int)zq << kFaceBits) | cell_key);
         }
       }
     }
   }
-  key_out[t] = best;
+  __syncthreads();
+  for (int l = threadIdx.x; l < NPIX; l += kThreads) {
+    const int y = ty0 + l / TX, x = tx0 + l % TX;
+    if (y < H && x < W) key_out[((long long)b * H + y) * W + x] = s_best[l];
+  }
+}
+
+template <int WIN>
+void launch_tests(const int16_t* buf, int* key, int B, int H, int W, int pad,
+                  Quant q, cudaStream_t stream) {
+  const int gx = (W + kTestsTileX - 1) / kTestsTileX;
+  if ((long long)gx * ((H + 15) / 16) * B >= kSmallGridTiles) {
+    dim3 grid(gx, (H + 15) / 16, B);
+    tests_kernel<WIN, 16><<<grid, kThreads, 0, stream>>>(buf, B, H, W, pad,
+                                                         q, key);
+  } else {
+    dim3 grid(gx, (H + 7) / 8, B);
+    tests_kernel<WIN, 8><<<grid, kThreads, 0, stream>>>(buf, B, H, W, pad, q,
+                                                        key);
+  }
 }
 
 }  // namespace
@@ -220,15 +378,20 @@ extern "C" int g2s_raster_place(const float* vx, const float* vy,
   return (int)cudaGetLastError();
 }
 
+// window in [1, 5]; anything else is refused (cudaErrorInvalidValue).
 extern "C" int g2s_raster_tests(const int16_t* buf, int* key, int B, int H,
                                 int W, int pad, int window, float r_lo,
                                 float r_step, float near, float depth_scale,
                                 cudaStream_t stream) {
-  long long n = (long long)B * H * W;
-  if (n == 0) return 0;
-  unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
+  if ((long long)B * H * W == 0) return 0;
   Quant q{r_lo, r_step, near, depth_scale};
-  tests_kernel<<<blocks, kThreads, 0, stream>>>(buf, B, H, W, pad, window, q,
-                                                key);
+  switch (window) {
+    case 1: launch_tests<1>(buf, key, B, H, W, pad, q, stream); break;
+    case 2: launch_tests<2>(buf, key, B, H, W, pad, q, stream); break;
+    case 3: launch_tests<3>(buf, key, B, H, W, pad, q, stream); break;
+    case 4: launch_tests<4>(buf, key, B, H, W, pad, q, stream); break;
+    case 5: launch_tests<5>(buf, key, B, H, W, pad, q, stream); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

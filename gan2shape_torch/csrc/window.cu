@@ -21,6 +21,16 @@
 // The splat uses atomicAdd: the order in which colliding windows add into one
 // source pixel changes from run to run, so its result is not bitwise
 // reproducible; it is held to a tolerance against the plain version.
+//
+// A deterministic gather design (a tile kernel that lists, per output tile,
+// the points whose windows land on it and stores each output once in the
+// plain version's order, with no memset and no atomics, plus a kernel that
+// adds with atomics the windows out of its reach) was measured against this
+// one on an H100 on the starts that training produces, and lost at B=16 and
+// at B=1.  Those starts are smooth fields (windows 0-1 px from their pixel,
+// or moved together by a few px in step 3): their atomics rarely collide,
+// while the gather pays for finding and ordering each pixel's points and for
+// a second launch.  Its design and numbers are in PERF.md.
 
 #include <cuda_runtime.h>
 

@@ -279,7 +279,11 @@ def dense_winner_plain(bufs, h, w, window, near, far):
 
 def raster_tests(bufs, h, w, window, near, far):
     """Candidate tests: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors.  Returns (B, H, W) int32 winner keys."""
+    for CPU tensors.  Window 1 to 5 (the grid mode's cap) on either device;
+    a ValueError beyond.  Returns (B, H, W) int32 winner keys."""
+    if not 1 <= window <= 5:
+        raise ValueError(f"the candidate tests take window 1 to 5, got "
+                         f"{window}")
     if bufs.device.type == "cpu":
         return dense_winner_plain(bufs, h, w, window, near, far)
     _cuda.check_cuda_tensor(bufs, "bufs", torch.int16, 7)
@@ -301,7 +305,8 @@ def raster_tests(bufs, h, w, window, near, far):
 
 
 def winner_keys(vx, vy, vz, window, near, far):
-    """Stages 1 + 2 on detached vertex fields: (B, H, W) int32 keys."""
+    """Stages 1 + 2 on detached vertex fields: (B, H, W) int32 keys.
+    Window 1 to 5 on either device (see `raster_tests`)."""
     h, w = vx.shape[1:]
     bufs = raster_place(vx, vy, vz, window, near, far)
     return raster_tests(bufs, h, w, window, near, far)
@@ -322,9 +327,9 @@ def raster_mega(vx, vy, vz, window, near, far):
     slot only with a strictly smaller (32767 - r0q) << 16 | cell key and
     drops no displaced face, which is the nearest-wins min-merge of
     `raster_place`; so on CUDA tensors this runs the two kernels of
-    csrc/raster.cu, on CPU tensors their plain versions.  It launches no
-    kernel of its own: its launches are counted as `raster_place` (two) and
-    `raster_tests` (one)."""
+    csrc/raster.cu, on CPU tensors their plain versions; window 1 to 5 on
+    either device.  It launches no kernel of its own: its launches are
+    counted as `raster_place` (two) and `raster_tests` (one)."""
     key = winner_keys(*(t.detach().contiguous() for t in (vx, vy, vz)),
                       window, near, far)
     return _winner_cells(key)

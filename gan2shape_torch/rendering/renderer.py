@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from gan2shape_torch.device import resolve_device
 from gan2shape_torch.ops.grid_sample import grid_sample, grid_sample_im_mask
 from gan2shape_torch.ops.rasterize import (
     grid_faces, rasterize_attributes, rasterize_depth,
@@ -54,11 +55,12 @@ def get_transform_matrices(view):
 
 class Renderer:
     """Camera and mesh constants plus the rendering functions.  Constant
-    tensors live on `device`."""
+    tensors live on `device`: CUDA unless the caller asks for the CPU
+    (`resolve_device`)."""
 
     def __init__(self, config, image_size, min_depth, max_depth,
-                 device="cpu"):
-        self.device = torch.device(device)
+                 device=None):
+        self.device = resolve_device(device)
         self.image_size = image_size
         self.min_depth = min_depth
         self.max_depth = max_depth

@@ -70,15 +70,37 @@ def test_port_import_loads_no_jax_module():
 
 
 def test_entry_points_refuse_missing_cuda(monkeypatch):
-    from gan2shape_torch.core.model import GAN2Shape
+    from gan2shape_torch.core.model import GAN2Shape, ViewLightSampler
     from gan2shape_torch.device import resolve_device
+    from gan2shape_torch.rendering.renderer import Renderer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GAN2Shape({"image_size": 64, "gan_size": 32})
+    # the public constructors default to the card too
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Renderer({}, 16, 0.9, 1.1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ViewLightSampler.default()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ViewLightSampler(np.zeros(6), np.eye(6), np.zeros(4), np.eye(4))
     assert resolve_device("cpu").type == "cpu"
+    assert Renderer({}, 16, 0.9, 1.1, device="cpu").K.device.type == "cpu"
+    assert ViewLightSampler.default(device="cpu").view_mean.device.type == \
+        "cpu"
+
+
+@pytest.mark.cuda
+def test_constructors_default_to_the_card():
+    from gan2shape_torch.core.model import ViewLightSampler
+    from gan2shape_torch.rendering.renderer import Renderer
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert Renderer({}, 16, 0.9, 1.1).K.device.type == "cuda"
+    assert ViewLightSampler.default().view_mean.device.type == "cuda"
 
 
 def test_cpu_tensors_take_plain_versions():

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card
-(marked `cuda`; they skip without a GPU).  This file imports no JAX, so it
+(marked `cuda`; they skip without a GPU), and the wrappers' refusals on
+either device.  This file imports no JAX, so it
 also runs where only the port is installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
@@ -42,6 +43,11 @@ def _starts(rng, b, h, w, spread=3):
             torch.from_numpy(np.clip(ix, 0, w - 2).reshape(b, -1)).int())
 
 
+def _splat_tol(want):
+    return 4 * torch.finfo(torch.float32).eps * max(float(want.abs().max()),
+                                                    1)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("c", [3, 4, 6])
 def test_fetch_and_splat_kernels_match_plain(rng, cuda, c):
@@ -55,8 +61,28 @@ def test_fetch_and_splat_kernels_match_plain(rng, cuda, c):
     assert torch.equal(got, fetch2x2_plain(src, iy, ix))
     got = splat2x2(g.to(cuda), iy.to(cuda), ix.to(cuda), (b, c, h, w)).cpu()
     want = splat2x2_plain(g, iy, ix, (b, c, h, w))
-    tol = 4 * torch.finfo(torch.float32).eps * max(float(want.abs().max()), 1)
-    assert float((got - want).abs().max()) <= tol
+    assert float((got - want).abs().max()) <= _splat_tol(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c,h,w,p", [
+    (1, 3, 128, 128, 128 * 128), (4, 3, 64, 64, 64 * 64),
+    (3, 5, 37, 45, 37 * 45),
+    # the patch layout of gather_window2x2: any number of points
+    (2, 3, 64, 64, 1000), (1, 6, 32, 48, 32 * 48 + 7)])
+def test_splat_kernel_shapes(rng, cuda, b, c, h, w, p):
+    g = torch.from_numpy(rng.standard_normal((b, 4 * c, p)).astype(
+        np.float32))
+    if p == h * w:
+        iy, ix = _starts(rng, b, h, w)
+    else:
+        iy = torch.from_numpy(rng.integers(-1, h, (b, p))).int()
+        ix = torch.from_numpy(rng.integers(-1, w, (b, p))).int()
+    _cuda.reset_launches()
+    got = splat2x2(g.to(cuda), iy.to(cuda), ix.to(cuda), (b, c, h, w)).cpu()
+    assert _cuda.LAUNCHES["splat2x2"] == 1
+    want = splat2x2_plain(g, iy, ix, (b, c, h, w))
+    assert float((got - want).abs().max()) <= _splat_tol(want)
 
 
 def _warp(rng, b, s):
@@ -75,8 +101,9 @@ def _warp(rng, b, s):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,b,window", [(64, 4, 3), (128, 16, 3),
-                                        (64, 4, 5)])
+@pytest.mark.parametrize("s,b,window", [
+    (64, 4, 3), (128, 16, 3), (64, 4, 5), (128, 1, 3), (128, 1, 5),
+    (128, 16, 5), (40, 2, 3), (40, 2, 5), (100, 16, 5)])
 def test_raster_kernels_match_plain(rng, cuda, s, b, window):
     near, far = 0.8, 1.2
     vx, vy, vz = _warp(rng, b, s)
@@ -91,6 +118,22 @@ def test_raster_kernels_match_plain(rng, cuda, s, b, window):
     assert _cuda.LAUNCHES["raster_tests"] == 1
     assert torch.equal(key, dense_winner_plain(ref, s, s, window, near, far))
     assert float((key != SENTINEL).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+def test_raster_tests_refuses_windows_above_5(rng, device):
+    # the same refusal on both devices, by raster_tests and the entries
+    # that reach it
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    bufs = torch.full((2, 1, 2, 2, 10, 30, 30), -1, dtype=torch.int16,
+                      device=device)
+    with pytest.raises(ValueError, match="window 1 to 5"):
+        raster_tests(bufs, 16, 16, 6, 0.8, 1.2)
+    vx, vy, vz = (t.to(device) for t in _warp(rng, 1, 16))
+    with pytest.raises(ValueError, match="window 1 to 5"):
+        raster_mega(vx, vy, vz, 6, 0.8, 1.2)
 
 
 @pytest.mark.cuda

@@ -112,7 +112,7 @@ def test_covered_pixels_agree_with_exact_zbuffer(warps):
     covered agreement)."""
     depth, views, *_ = warps
     jr = j_render.Renderer(CFG, S, 0.9, 1.1)
-    tr = t_render.Renderer(CFG, S, 0.9, 1.1)
+    tr = t_render.Renderer(CFG, S, 0.9, 1.1, device="cpu")
     far = jr.max_depth + jr.margin
     rot, trans = j_render.get_transform_matrices(jnp.asarray(views))
     d_exact = np.asarray(jr.warp_canon_depth(jnp.asarray(depth), rot, trans,
@@ -152,7 +152,8 @@ def test_renderer_raster_modes_match_jax(warps, mode):
     # three views: the shapes test_renderer_geometry_matches_jax compiles
     depth, views = warps[0][1:], warps[1][1:]
     jr = j_render.Renderer(dict(CFG, raster_mode=mode), S, 0.9, 1.1)
-    tr = t_render.Renderer(dict(CFG, raster_mode=mode), S, 0.9, 1.1)
+    tr = t_render.Renderer(dict(CFG, raster_mode=mode), S, 0.9, 1.1,
+                           device="cpu")
     assert tr.raster_mode == mode
     rot, trans = j_render.get_transform_matrices(jnp.asarray(views))
     want = np.asarray(jr.warp_canon_depth(jnp.asarray(depth), rot, trans))
@@ -163,7 +164,7 @@ def test_renderer_raster_modes_match_jax(warps, mode):
 
 def test_renderer_geometry_matches_jax(rng):
     jr = j_render.Renderer(CFG, S, 0.9, 1.1)
-    tr = t_render.Renderer(CFG, S, 0.9, 1.1)
+    tr = t_render.Renderer(CFG, S, 0.9, 1.1, device="cpu")
     views = np.asarray(VIEWS[1:], np.float32)
     depth = np.stack([_smooth_depth(rng, S) for _ in range(len(views))])
     jrot, jtrans = j_render.get_transform_matrices(jnp.asarray(views))
@@ -186,7 +187,7 @@ def test_renderer_geometry_matches_jax(rng):
 
 def test_render_given_view_matches_jax(rng):
     jr = j_render.Renderer(CFG, S, 0.9, 1.1)
-    tr = t_render.Renderer(CFG, S, 0.9, 1.1)
+    tr = t_render.Renderer(CFG, S, 0.9, 1.1, device="cpu")
     n = 3
     views = (np.asarray(VIEWS[1:], np.float32)
              * np.asarray([1, 1, 1, 0.1, 0.1, 0.1], np.float32))

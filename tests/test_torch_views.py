@@ -47,7 +47,7 @@ def scene():
     views = np.asarray(VIEWS, np.float32) * np.asarray(
         [1, 1, 1, 0.1, 0.1, 0.1], np.float32)
     return (depth, im, mask, views, j_render.Renderer(CFG, R, 0.9, 1.1),
-            t_render.Renderer(CFG, R, 0.9, 1.1))
+            t_render.Renderer(CFG, R, 0.9, 1.1, device="cpu"))
 
 
 def _close(t, j, atol=1e-4):

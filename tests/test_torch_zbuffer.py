@@ -151,7 +151,7 @@ def test_rasterize_depth_and_vertex_grads_match_jax(cases, mode, rng):
 def test_invwarp_matches_port_scatter():
     """The limits of tests/test_rasterize_invwarp.py, on the port alone."""
     rng = np.random.default_rng(0)
-    r = t_render.Renderer(CFG, S, 0.9, 1.1)
+    r = t_render.Renderer(CFG, S, 0.9, 1.1, device="cpu")
     depth = T(_smooth_depth(rng, S)[None])
     for view, least in zip(VIEWS[:3], (1.0, 0.995, 0.985)):
         rot, trans = t_render.get_transform_matrices(T([view]).float())
