@@ -7,8 +7,9 @@ Phases, each of which must pass:
   2. build the CUDA kernels from gan2shape_torch/csrc (one nvcc per source,
      all at once) into build/kernels/;
   3. hold every kernel against its plain PyTorch version on the card at the
-     main path's shapes (the raster kernels at windows 3 and 5, their keys
-     bit-equal), and time the kernel's wrapper, the plain version and, where
+     main path's shapes (the raster kernels at windows 3 and 5, their
+     payload buffers and keys bit-equal, the placement also on a folded
+     warp), and time the kernel's wrapper, the plain version and, where
      one exists, one PyTorch call of the same function (a yardstick only), by
      CUDA events per call; beside each wrapper time, the kernel's own device
      time per launch, from torch.profiler by kernel name, and the least time
@@ -18,8 +19,8 @@ Phases, each of which must pass:
      and 128 px, with the launch counts zeroed just before and read just
      after, its `raster_mega` checks held bit-exact; then `raster_mega`
      timed against the buffers path (its launches in the kernels line are
-     those of the two kernels it runs, `place_kernel` and `tests_kernel`,
-     on this path);
+     those of the kernels it runs on this path: `place_collide_kernel`,
+     `place_write_kernel` and `tests_kernel`);
   5. the other raster modes and the renders at full width: `warp_canon_depth`
      in 'scatter' and 'invwarp' mode at B=16 and `render_view` (mesh RGB) at
      B=1, 128 px, checked finite and covered, and timed;
@@ -68,6 +69,13 @@ VIEWS = [[0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
          [0.12, -0.2, 0.05, 0.02, -0.02, 0.03],
          [-0.25, 0.3, -0.1, -0.05, 0.04, -0.06],
          [0.3, 0.15, -0.2, 0.05, 0.05, -0.05]]
+# large yaws and shifts over a depth step: the far sheet folds over the near
+# one, so faces collide in their payload slots, and part of each grid
+# leaves the padded viewport
+FOLD_VIEWS = [[0.1, 0.5, 0.0, 0.04, 0.0, 0.0],
+              [-0.2, -0.6, 0.1, -0.03, 0.02, 0.0],
+              [0.0, 0.7, -0.2, 0.0, -0.04, 0.05],
+              [0.3, -0.4, 0.0, 0.03, 0.03, 0.0]]
 
 KERNELS = {
     "raster_place": ("gan2shape_torch/csrc/raster.cu",
@@ -81,16 +89,18 @@ KERNELS = {
     "raster_mega": ("gan2shape_torch/csrc/raster.cu",
                     "gan2shape_tpu/ops/rasterize.py:595"),
 }
-# raster_mega launches no kernel of its own: it runs place_kernel (counted
-# as raster_place) and tests_kernel (counted as raster_tests)
-SERVED_BY = {"raster_mega": {"place_kernel": "raster_place",
-                             "tests_kernel": "raster_tests"}}
-# the CUDA kernel names (as torch.profiler reports them) behind each entry
-KERNEL_NAMES = {"raster_place": ("place_kernel",),
+# raster_mega launches no kernel of its own: it runs the kernels of
+# raster_place and raster_tests, counted by those wrappers
+SERVED_BY = {"raster_mega": ("raster_place", "raster_tests")}
+# the CUDA kernel names (as torch.profiler reports them) behind each entry;
+# a wrapper's call launches each of its kernels once
+KERNEL_NAMES = {"raster_place": ("place_collide_kernel",
+                                 "place_write_kernel"),
                 "raster_tests": ("tests_kernel",),
                 "fetch2x2": ("fetch2x2_kernel",),
                 "splat2x2": ("splat2x2_kernel",),
-                "raster_mega": ("place_kernel", "tests_kernel")}
+                "raster_mega": ("place_collide_kernel", "place_write_kernel",
+                                "tests_kernel")}
 # the kernels each driven path must launch
 MAIN_PATH = ("raster_place", "raster_tests", "fetch2x2", "splat2x2")
 CHECK_PATH = ("raster_place", "raster_tests", "fetch2x2")
@@ -214,15 +224,32 @@ def training_scene(renderer, b, seed):
     return (depth, *get_transform_matrices(views))
 
 
-def training_warp(renderer, b, seed):
-    """Vertices (vx, vy, vz) of smooth depth maps under training-scale
-    views, as the renderer projects them."""
-    depth, rot, trans = training_scene(renderer, b, seed)
-    s = renderer.image_size
+def screen_vertices(renderer, depth, rot, trans):
+    """Vertices (vx, vy, vz) of depth maps under views, as the renderer
+    projects them."""
+    b, s, _ = depth.shape
     pts = renderer.get_warped_3d_grid(depth, rot, trans).reshape(b, -1, 3)
-    xs, ys, zs = renderer._project_screen(pts)
-    return (xs.reshape(b, s, s).contiguous(), ys.reshape(b, s, s).contiguous(),
-            zs.reshape(b, s, s).contiguous())
+    return [t.reshape(b, s, s).contiguous()
+            for t in renderer._project_screen(pts)]
+
+
+def training_warp(renderer, b, seed):
+    """Vertices of smooth depth maps under training-scale views."""
+    return screen_vertices(renderer, *training_scene(renderer, b, seed))
+
+
+def folded_warp(renderer, b):
+    """Vertices of a depth map with a steep step under FOLD_VIEWS."""
+    import torch
+    from gan2shape_torch.rendering.renderer import get_transform_matrices
+
+    s = renderer.image_size
+    ys, xs = torch.meshgrid(torch.arange(s, device="cuda"),
+                            torch.arange(s, device="cuda"), indexing="ij")
+    step = torch.where(xs + 0.5 * ys < 0.6 * s, 0.95, 1.1)
+    views = torch.tensor((FOLD_VIEWS * b)[:b], device="cuda")
+    return screen_vertices(renderer, step.expand(b, s, s).contiguous(),
+                           *get_transform_matrices(views))
 
 
 def raster_work(bufs, h, w, window, near, far):
@@ -318,11 +345,29 @@ def check_raster(results):
                       f"{where}: payload buffers equal {buf_eq}, key "
                       f"agreement {agree:.6f}, tests kernel alone "
                       f"{agree_t:.6f} (== 1), covered {covered:.4f}")
+    # a folded warp at 128 px: faces collide in their slots (fewer slots
+    # won than faces placed) and some leave the padded viewport
+    s = 128
+    renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
+    for window in (3, 5):
+        for b in (1, 16):
+            vx, vy, vz = folded_warp(renderer, b)
+            bufs = R.raster_place(vx, vy, vz, window, near, far)
+            won = int((bufs[:, :, :, :, 9] >= 0).sum())
+            placed = faces_in_viewport(vx, vy, window + 1)
+            n_faces = 2 * b * (s - 1) ** 2
+            for where in ("cuda", "cpu"):
+                ref = R.build_winner_buffers_plain(
+                    *(t.to(where) for t in (vx, vy, vz)), window, near, far)
+                buf_eq = bool(torch.equal(bufs.to(where), ref))
+                check(buf_eq and won < placed < n_faces,
+                      f"raster_place folded warp {s}px B={b} window "
+                      f"{window} vs plain on {where}: payload buffers equal "
+                      f"{buf_eq}, {won} slots won by {placed} faces placed "
+                      f"of {n_faces}")
     # timings and bounds at the main path's calls, 128 px at B=16 (step 2's
     # pool, step 3) and B=1 (steps 1 and 3), at window 3 (the main path's;
     # B=16 goes into the kernels line) and window 5
-    s = 128
-    renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
     for b, window in ((16, 3), (16, 5), (1, 3), (1, 5)):
         vx, vy, vz = training_warp(renderer, b, seed=7)
         bufs = R.raster_place(vx, vy, vz, window, near, far)
@@ -365,6 +410,21 @@ def check_raster(results):
                   f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}"
                   f"{yard_text}), at B={b} {s}px window {window} "
                   f"({n_inside} of {n_cand} candidates covered)", flush=True)
+
+
+def faces_in_viewport(vx, vy, pad):
+    """Faces whose half-pixel bbox start lies in the padded viewport: the
+    faces placement puts into a slot."""
+    import torch
+    h, w = vx.shape[1:]
+    n = 0
+    for tri in (((0, 0), (1, 0), (0, 1)), ((0, 1), (1, 0), (1, 1))):
+        bx2, by2 = (torch.floor(2 * torch.stack(
+            [v[:, di:di + h - 1, dj:dj + w - 1] for di, dj in tri]).amin(0))
+            for v in (vx, vy))
+        n += int(((bx2 >= -2 * pad) & (bx2 < 2 * (w + pad))
+                  & (by2 >= -2 * pad) & (by2 < 2 * (h + pad))).sum())
+    return n
 
 
 def window_inputs(b, c, s, seed):
@@ -546,10 +606,10 @@ def run_check_path(results):
     yard = bound_ms(io_bytes, place_ops + yard_ops)[0]
     fn = lambda: R.raster_mega(vx, vy, vz, window, near, far)  # noqa: E731
     ms = cuda_ms(fn)
-    # its device ms: the place_kernel and tests_kernel launches of one call
+    # its device ms: the three kernel launches of one call
     dev, dev_call, parts = device_summary(device_times(fn),
                                           KERNEL_NAMES["raster_mega"])
-    dev *= 3
+    dev *= len(KERNEL_NAMES["raster_mega"])
     plain = cuda_ms(lambda: R.dense_winner(vx, vy, vz, window, near, far),
                     reps=5)
     results["raster_mega"] = {"max_abs_err": err, "ms": ms,
@@ -786,9 +846,10 @@ def main(argv):
         # others' on the main path
         extra = {}
         if name in SERVED_BY:
-            extra["served_by"] = {kernel: check_launches[counter]
-                                  for kernel, counter
-                                  in SERVED_BY[name].items()}
+            extra["served_by"] = {
+                kernel: check_launches[counter] // len(KERNEL_NAMES[counter])
+                for counter in SERVED_BY[name]
+                for kernel in KERNEL_NAMES[counter]}
             n = sum(extra["served_by"].values())
         else:
             n = launches[name]

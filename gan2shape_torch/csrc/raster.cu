@@ -8,16 +8,22 @@
 //   output pixel, the min packed key (quantized depth << 17 | face id) over
 //   the candidate tests; _decode_key turns it into (cell, parity, covered).
 //
-// Two kernels:
-//   1. placement (two launches of place_kernel): one thread per face and
-//      parity computes the half-pixel bbox slot and the 10-channel int16
-//      payload exactly as _build_winner_buffers does.  Pass 0 atomicMin's the
-//      packed (32767 - r0q) << 16 | cell key into the slot (nearest face
-//      wins); pass 1 lets only the winning face write its payload.  Faces
-//      outside the padded viewport are dropped, which is what the unique dump
-//      slots of the JAX version amount to.  _raster_mega_pallas_v2 also drops
-//      faces displaced more than DY_CAP = 96 rows; this kernel, like the
-//      buffers path it is held to, keeps them.
+// Three kernels, in two stages:
+//   1. placement, one C call (g2s_raster_place) that issues a memset and two
+//      launches: the payload slot of each face and parity is its half-pixel
+//      bbox start, its 10-channel int16 payload that of
+//      _build_winner_buffers, and a slot that several faces reach holds the
+//      nearest, the one with the least (32767 - r0q) << 16 | cell key.
+//      place_collide_kernel (a thread per face) merges every face's key into
+//      an int32 scratch plane by atomicMax, after a memset has cleared it
+//      (the scratch holds 2^31 - key, so 0 is empty); place_write_kernel (a
+//      thread per slot) reads its slot's key and writes -1, or the winner's
+//      payload rebuilt from the cell in the key, to the 10 channel planes.
+//      Faces outside the padded viewport are dropped, which is what the
+//      unique dump slots of the JAX version amount to.
+//      _raster_mega_pallas_v2 also drops faces displaced more than DY_CAP =
+//      96 rows; this placement, like the buffers path it is held to, keeps
+//      them.
 //   2. candidate tests (tests_kernel): the 2 parities x 4 phases x window^2
 //      tests of _winner_tests per output pixel, and its int32 min key.  A
 //      block owns a 32 x 16 tile of one batch element (32 x 8 where the call
@@ -63,12 +69,24 @@
 // What bounds it on an H100.  Placement: bytes.  At B=16, 128 px, window 3
 // the payload buffers are 47 MB of int16 (2 parities x 4 phases x 10
 // channels of the padded grid): placement writes them, the tests read them,
-// ~14 us each at 3.35 TB/s (~15 us at window 5).  The tests' arithmetic is
-// smaller: ~15 f32 operations per slot that holds a face, ~8 per offset
-// test of such a slot and ~18 more where the candidate covers its pixel, a
-// few us at the f32 rate, so bytes bound both windows.  (An older count of
-// ~25 per candidate, empty slots included, and ~17 per covering one put
-// window 5 at ~20 us of operations; chip_smoke keeps it as a yardstick.)  A
+// ~14 us each at 3.35 TB/s (~15 us at window 5).  About a fifth of the
+// slots hold a face, but every slot must be written, so the write pass owns
+// the slots and writes each once, coalesced, with no fill first.  On an
+// H100 (700 W) it took 0.031 ms where torch.full of the same 47 MB takes
+// 0.023 (writes run near 2.1 TB/s); the memset of the 9.5 MB key scratch
+// 0.0034 and the collide pass 0.006, against 0.114 ms for a placement of a
+// thread per face in both passes after two fills, whose winners' 10
+// scattered 2-byte stores alone took 0.077.  Two variants lost there: a
+// thread per 8 slots with one 16-byte store per channel (0.038 ms: 101
+// registers cut the threads in flight to a third), and a key scratch kept
+// between calls and cleared by the write pass instead of a memset (as fast
+// at B=16, 1 us faster at B=1: not worth state that outlives the call).
+// The tests' arithmetic is small: ~15 f32 operations per slot that holds a
+// face, ~8 per offset test of such a slot and ~18 more where the candidate
+// covers its pixel, a few us at the f32 rate, so bytes bound both windows.
+// (An older count of ~25 per candidate, empty slots included, and ~17 per
+// covering one put window 5 at ~20 us of operations; chip_smoke keeps it as
+// a yardstick.)  A
 // thread per pixel that decodes each of its candidates' slots from 10
 // scalar int16 loads ran 10-24x the bytes bound: every warp paid the whole
 // test for every candidate, since some lane's slot was always full.
@@ -86,6 +104,7 @@ constexpr int kFaceBits = 17;
 constexpr int kSentinel = 0x7fffffff;
 constexpr int kChannels = 10;
 constexpr int kThreads = 256;
+constexpr int kWriteThreads = 128;  // the write pass's blocks, as timed
 
 struct Quant {
   float r_lo;
@@ -114,69 +133,94 @@ __device__ __forceinline__ int half_pixel_floor(float a, float b, float c) {
   return (int)m;
 }
 
-// pass 0: atomicMin the collision key into kbuf; pass 1: the winner writes.
-// kbuf: (2, B, 4, hp, wp) int32; buf: (2, B, 4, 10, hp, wp) int16.
-__global__ void place_kernel(const float* __restrict__ vx,
-                             const float* __restrict__ vy,
-                             const float* __restrict__ vz, int B, int H,
-                             int W, int pad, float r_lo, float r_step,
-                             int* __restrict__ kbuf,
-                             int16_t* __restrict__ buf, int pass) {
-  int n_faces = (H - 1) * (W - 1);
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)2 * B * n_faces) return;
-  int cell = (int)(t % n_faces);
-  int b = (int)((t / n_faces) % B);
-  int parity = (int)(t / ((long long)n_faces * B));
-  int i = cell / (W - 1);
-  int j = cell % (W - 1);
-  int hp = H + 2 * pad;
-  int wp = W + 2 * pad;
+// A slot's collision key as the key buffer holds it: 2^31 - zkey, where
+// zkey = (32767 - r0q) << 16 | cell is the merge key of the plain version.
+// Nearest-wins, the minimum zkey, is the maximum of this, every face's value
+// is at least 1, and 0 marks an empty slot, so a memset clears the buffer.
+__device__ __forceinline__ unsigned slot_key(int zkey) {
+  return 0x80000000u - (unsigned)zkey;
+}
 
-  // upper triangle (tl, bl, tr), lower (tr, bl, br): grid_faces order
-  int r0, c0, r1, c1, r2, c2;
-  if (parity == 0) {
-    r0 = i; c0 = j; r1 = i + 1; c1 = j; r2 = i; c2 = j + 1;
-  } else {
-    r0 = i; c0 = j + 1; r1 = i + 1; c1 = j; r2 = i + 1; c2 = j + 1;
-  }
-  long long base = (long long)b * H * W;
-  long long v0 = base + (long long)r0 * W + c0;
-  long long v1 = base + (long long)r1 * W + c1;
-  long long v2 = base + (long long)r2 * W + c2;
-  float x0 = vx[v0], y0 = vy[v0], z0 = vz[v0];
-  float x1 = vx[v1], y1 = vy[v1], z1 = vz[v1];
-  float x2 = vx[v2], y2 = vy[v2], z2 = vz[v2];
+// The three vertex ids of face (parity, b, i, j): upper triangle (tl, bl, tr),
+// lower (tr, bl, br), in grid_faces order.
+__device__ __forceinline__ void face_vertices(int parity, int b, int i, int j,
+                                              int H, int W, long long v[3]) {
+  const long long base = (long long)b * H * W + (long long)i * W + j;
+  v[0] = parity == 0 ? base : base + 1;
+  v[1] = base + W;
+  v[2] = parity == 0 ? base + 1 : base + W + 1;
+}
 
-  int bx2 = half_pixel_floor(x0, x1, x2);
-  int by2 = half_pixel_floor(y0, y1, y2);
-  bool inb = bx2 >= -2 * pad && bx2 < 2 * (wp - pad) && by2 >= -2 * pad &&
-             by2 < 2 * (hp - pad);
-  if (!inb) return;
-  int s_x = bx2 + 2 * pad;  // in [0, 2*wp) when inb
-  int s_y = by2 + 2 * pad;
-  int qy = s_y / 2, sy = s_y % 2;
-  int qx = s_x / 2, sx = s_x % 2;
-  int16_t r0q = rq16(z0, r_lo, r_step);
-  int zkey = ((32767 - (int)r0q) << 16) | cell;
-
-  long long plane = (long long)hp * wp;
-  long long phase = ((long long)parity * B + b) * 4 + sy * 2 + sx;
-  long long pix = (long long)qy * wp + qx;
-  int* slot = kbuf + phase * plane + pix;
-  if (pass == 0) {
-    atomicMin(slot, zkey);
+// Collide pass: one thread per face of (parity, b) = blockIdx.y.  Loads what
+// the slot and its key need (x and y of the three vertices and z0), drops
+// faces outside the padded viewport, and atomicMax'es the face's key into
+// its slot.  kbuf: (2, B, 4, hp, wp) unsigned, all 0 before the launch.
+__global__ void place_collide_kernel(const float* __restrict__ vx,
+                                     const float* __restrict__ vy,
+                                     const float* __restrict__ vz, int B,
+                                     int H, int W, int pad, float r_lo,
+                                     float r_step,
+                                     unsigned* __restrict__ kbuf) {
+  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
+  if (cell >= (H - 1) * (W - 1)) return;
+  const int b = blockIdx.y % B;
+  const int parity = blockIdx.y / B;
+  const int hp = H + 2 * pad;
+  const int wp = W + 2 * pad;
+  long long v[3];
+  face_vertices(parity, b, cell / (W - 1), cell % (W - 1), H, W, v);
+  const int bx2 = half_pixel_floor(vx[v[0]], vx[v[1]], vx[v[2]]);
+  const int by2 = half_pixel_floor(vy[v[0]], vy[v[1]], vy[v[2]]);
+  if (!(bx2 >= -2 * pad && bx2 < 2 * (wp - pad) && by2 >= -2 * pad &&
+        by2 < 2 * (hp - pad)))
     return;
-  }
-  if (*slot != zkey) return;
-  float ax = (float)(qx - pad);
-  float ay = (float)(qy - pad);
-  int16_t ch[kChannels] = {
-      fx16(x0, ax), fx16(y0, ay), fx16(x1, ax), fx16(y1, ay),
-      fx16(x2, ax), fx16(y2, ay), r0q, rq16(z1, r_lo, r_step),
-      rq16(z2, r_lo, r_step), (int16_t)cell};
-  int16_t* dst = buf + phase * kChannels * plane + pix;
-  for (int k = 0; k < kChannels; ++k) dst[k * plane] = ch[k];
+  const int s_x = bx2 + 2 * pad;  // in [0, 2 * wp)
+  const int s_y = by2 + 2 * pad;
+  const long long phase = ((long long)parity * B + b) * 4 + (s_y & 1) * 2 +
+                          (s_x & 1);
+  const int zkey = ((32767 - (int)rq16(vz[v[0]], r_lo, r_step)) << 16) | cell;
+  atomicMax(kbuf + (phase * hp + (s_y >> 1)) * wp + (s_x >> 1),
+            slot_key(zkey));
+}
+
+// Write pass: one thread per slot (qy, qx) of phase ((parity * B) + b) * 4 +
+// sy * 2 + sx = blockIdx.y, consecutive threads along qx, so each of a
+// warp's 10 stores covers 32 consecutive int16 of one channel plane and
+// every slot is written once.  An empty slot gets -1 in every channel; a won
+// one the winner's payload, from the cell in its key and the slot's own
+// parity and batch element.  Empty slots run the arithmetic on cell 0 and
+// keep -1, so no warp branches.  buf: (2, B, 2, 2, 10, hp, wp) int16, whole.
+__global__ void place_write_kernel(const float* __restrict__ vx,
+                                   const float* __restrict__ vy,
+                                   const float* __restrict__ vz, int B, int H,
+                                   int W, int pad, float r_lo, float r_step,
+                                   const unsigned* __restrict__ kbuf,
+                                   int16_t* __restrict__ buf) {
+  const int wp = W + 2 * pad;
+  const int plane = (H + 2 * pad) * wp;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= plane) return;
+  const int phase = blockIdx.y;
+  const unsigned key = kbuf[(long long)phase * plane + pix];
+  const bool won = key != 0;
+  const int zkey = won ? (int)(0x80000000u - key) : 0;
+  const int cell = zkey & 0xffff;
+  long long v[3];
+  face_vertices(phase / (4 * B), (phase >> 2) % B, cell / (W - 1),
+                cell % (W - 1), H, W, v);
+  // the slot's integer-pixel anchor, as the collide pass placed the face
+  const float ax = (float)(pix % wp - pad);
+  const float ay = (float)(pix / wp - pad);
+  const int16_t ch[kChannels] = {
+      fx16(vx[v[0]], ax), fx16(vy[v[0]], ay), fx16(vx[v[1]], ax),
+      fx16(vy[v[1]], ay), fx16(vx[v[2]], ax), fx16(vy[v[2]], ay),
+      (int16_t)(32767 - (zkey >> 16)),  // r0q, as the key holds it
+      rq16(vz[v[1]], r_lo, r_step), rq16(vz[v[2]], r_lo, r_step),
+      (int16_t)cell};
+  int16_t* dst = buf + (long long)phase * kChannels * plane + pix;
+#pragma unroll
+  for (int k = 0; k < kChannels; ++k)
+    dst[k * plane] = won ? ch[k] : (int16_t)-1;
 }
 
 // True only where l = RN(n / safe) < -1e-5, so the candidate is outside.
@@ -364,17 +408,28 @@ void launch_tests(const int16_t* buf, int* key, int B, int H, int W, int pad,
 
 }  // namespace
 
-// One launch of place_kernel for `pass`; the caller runs pass 0, then pass 1,
-// on the same kbuf and buf, which must hold kSentinel and -1 before pass 0.
+// The whole placement on `stream`: clear the key scratch kbuf (2, B, 4, hp,
+// wp) unsigned, the collide pass, then the write pass, which fills buf
+// (2, B, 2, 2, 10, hp, wp) int16 whole.  0 < B <= 8191 (the grid's y), H
+// and W > 1 and (H - 1) (W - 1) <= 65536 (a cell fits the key's 16 bits).
 extern "C" int g2s_raster_place(const float* vx, const float* vy,
-                                const float* vz, int* kbuf, int16_t* buf,
+                                const float* vz, unsigned* kbuf, int16_t* buf,
                                 int B, int H, int W, int pad, float r_lo,
-                                float r_step, int pass, cudaStream_t stream) {
-  long long n = (long long)2 * B * (H - 1) * (W - 1);
-  if (n == 0) return 0;
-  unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  place_kernel<<<blocks, kThreads, 0, stream>>>(vx, vy, vz, B, H, W, pad,
-                                                r_lo, r_step, kbuf, buf, pass);
+                                float r_step, cudaStream_t stream) {
+  const int n_cells = (H - 1) * (W - 1);
+  const int plane = (H + 2 * pad) * (W + 2 * pad);
+  cudaError_t err = cudaMemsetAsync(
+      kbuf, 0, (size_t)2 * B * 4 * plane * sizeof(unsigned), stream);
+  if (err != cudaSuccess) return (int)err;
+  dim3 faces((n_cells + kThreads - 1) / kThreads, 2 * B);
+  place_collide_kernel<<<faces, kThreads, 0, stream>>>(vx, vy, vz, B, H, W,
+                                                       pad, r_lo, r_step,
+                                                       kbuf);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  dim3 slots((plane + kWriteThreads - 1) / kWriteThreads, 2 * B * 4);
+  place_write_kernel<<<slots, kWriteThreads, 0, stream>>>(
+      vx, vy, vz, B, H, W, pad, r_lo, r_step, kbuf, buf);
   return (int)cudaGetLastError();
 }
 

@@ -35,8 +35,7 @@ SIGNATURES = {
         "g2s_splat2x2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "raster": {
-        "g2s_raster_place": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                             _P),
+        "g2s_raster_place": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
         "g2s_raster_tests": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     },
 }

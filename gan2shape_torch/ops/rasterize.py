@@ -45,6 +45,8 @@ DEPTH_BITS = 14
 FACE_BITS = 17  # 2*(h-1)*(w-1) faces: up to 256x256 grids
 SENTINEL = 2 ** 31 - 1
 N_CHANNELS = 10
+# the write pass's grid has 2 * 4 * B rows of blocks, at most 65535
+MAX_PLACE_BATCH = 8191
 MODES = ("grid", "scatter", "invwarp")
 
 
@@ -152,7 +154,7 @@ def decode_key(key, n_faces):
 # ---------------- stage 1: placement ----------------
 
 def build_winner_buffers_plain(vx, vy, vz, window, near, far):
-    """Plain version of the placement kernel.  vx/vy/vz (B, H, W) f32.
+    """Plain version of the placement kernels.  vx/vy/vz (B, H, W) f32.
     Returns (2, B, 2, 2, 10, HP, WP) int16 payloads (parity, batch, y-phase,
     x-phase, channel, padded row, padded column), -1 where empty."""
     b, h, w = vx.shape
@@ -227,30 +229,38 @@ def build_winner_buffers_plain(vx, vy, vz, window, near, far):
 
 
 def raster_place(vx, vy, vz, window, near, far):
-    """Placement: the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors.  See `build_winner_buffers_plain` for the result."""
+    """Placement: the CUDA kernels for CUDA tensors, the plain version for
+    CPU tensors.  See `build_winner_buffers_plain` for the result.  Grids of
+    1 to 2^16 cells on either device: a cell id fills the 16 low bits of
+    the collision key."""
+    b, h, w = vx.shape
+    if not (h > 1 and w > 1 and (h - 1) * (w - 1) <= 2 ** 16):
+        raise ValueError(f"placement takes 1 to 2^16 cells, got "
+                         f"{h - 1} x {w - 1}")
     if vx.device.type == "cpu":
         return build_winner_buffers_plain(vx, vy, vz, window, near, far)
     for name, t in (("vx", vx), ("vy", vy), ("vz", vz)):
         _cuda.check_cuda_tensor(t, name, torch.float32, 3)
     if not vx.shape == vy.shape == vz.shape:
         raise ValueError("vx, vy, vz must have one shape")
-    b, h, w = vx.shape
+    if b > MAX_PLACE_BATCH:
+        raise ValueError(f"placement takes at most {MAX_PLACE_BATCH} grids, "
+                         f"got {b}")
     pad = window + 1
     hp, wp = h + 2 * pad, w + 2 * pad
-    kbuf = torch.full((2, b, 4, hp, wp), SENTINEL, dtype=torch.int32,
+    # the payloads, which the write pass fills whole
+    buf = torch.empty((2, b, 2, 2, N_CHANNELS, hp, wp), dtype=torch.int16,
                       device=vx.device)
-    buf = torch.full((2, b, 2, 2, N_CHANNELS, hp, wp), -1, dtype=torch.int16,
-                     device=vx.device)
+    if b == 0:
+        return buf
+    kbuf = torch.empty((2, b, 4, hp, wp), dtype=torch.int32, device=vx.device)
     r_lo, r_step = _inv_z_quant(near, far)
-    lib = _cuda.load("raster")
-    for pass_ in (0, 1):  # 0: nearest-wins atomicMin, 1: the winner writes
-        err = lib.g2s_raster_place(vx.data_ptr(), vy.data_ptr(),
-                                   vz.data_ptr(), kbuf.data_ptr(),
-                                   buf.data_ptr(), b, h, w, pad, r_lo, r_step,
-                                   pass_, _cuda.stream_of(vx))
-        _cuda.check(err, "raster_place")
-        _cuda.LAUNCHES["raster_place"] += 1
+    err = _cuda.load("raster").g2s_raster_place(
+        vx.data_ptr(), vy.data_ptr(), vz.data_ptr(), kbuf.data_ptr(),
+        buf.data_ptr(), b, h, w, pad, r_lo, r_step, _cuda.stream_of(vx))
+    _cuda.check(err, "raster_place")
+    # place_collide_kernel and place_write_kernel
+    _cuda.LAUNCHES["raster_place"] += 2
     return buf
 
 
@@ -326,10 +336,11 @@ def raster_mega(vx, vy, vz, window, near, far):
     parity f32, covered bool).  That kernel's serial placement overwrites a
     slot only with a strictly smaller (32767 - r0q) << 16 | cell key and
     drops no displaced face, which is the nearest-wins min-merge of
-    `raster_place`; so on CUDA tensors this runs the two kernels of
-    csrc/raster.cu, on CPU tensors their plain versions; window 1 to 5 on
-    either device.  It launches no kernel of its own: its launches are
-    counted as `raster_place` (two) and `raster_tests` (one)."""
+    `raster_place`; so on CUDA tensors this runs the placement and test
+    kernels of csrc/raster.cu, on CPU tensors their plain versions; window
+    1 to 5 on either device.  It launches no kernel of its own: its
+    launches are counted as `raster_place` (two) and `raster_tests`
+    (one)."""
     key = winner_keys(*(t.detach().contiguous() for t in (vx, vy, vz)),
                       window, near, far)
     return _winner_cells(key)

@@ -21,6 +21,9 @@ from gan2shape_torch.ops.rasterize import (
 from gan2shape_torch.ops.splat_window import (
     fetch2x2, fetch2x2_plain, splat2x2, splat2x2_plain,
 )
+from gan2shape_torch.rendering.renderer import (
+    Renderer, get_transform_matrices,
+)
 
 
 @pytest.fixture
@@ -100,6 +103,55 @@ def _warp(rng, b, s):
             for k in range(3)]
 
 
+# large yaws and shifts over a depth step: the far sheet folds over the
+# near one, and part of each grid leaves the padded viewport
+FOLD_VIEWS = [[0.1, 0.5, 0.0, 0.04, 0.0, 0.0],
+              [-0.2, -0.6, 0.1, -0.03, 0.02, 0.0],
+              [0.0, 0.7, -0.2, 0.0, -0.04, 0.05],
+              [0.3, -0.4, 0.0, 0.03, 0.03, 0.0]]
+
+
+def _folded_warp(b, s):
+    """Vertices (vx, vy, vz) of a depth map with a steep step under
+    FOLD_VIEWS, projected by the port's renderer on the CPU."""
+    ys, xs = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    step = np.where(xs + 0.5 * ys < 0.6 * s, 0.95, 1.1).astype(np.float32)
+    r = Renderer({"rot_center_depth": 1.0, "fov": 10}, s, 0.9, 1.1,
+                 device="cpu")
+    rot, trans = get_transform_matrices(
+        torch.tensor((FOLD_VIEWS * b)[:b], dtype=torch.float32))
+    pts = r.get_warped_3d_grid(torch.from_numpy(np.stack([step] * b)), rot,
+                               trans)
+    return [t.reshape(b, s, s).contiguous()
+            for t in r._project_screen(pts.reshape(b, -1, 3))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("window", [3, 5])
+def test_raster_place_matches_plain_on_folded_warp(cuda, b, window):
+    near, far, s = 0.8, 1.2, 128
+    vx, vy, vz = _folded_warp(b, s)
+    ref = build_winner_buffers_plain(vx, vy, vz, window, near, far)
+    # folds and faces off-screen: fewer slots are won than there are faces
+    assert int((ref[:, :, :, :, 9] >= 0).sum()) < 2 * b * (s - 1) ** 2
+    bufs = raster_place(vx.to(cuda), vy.to(cuda), vz.to(cuda), window, near,
+                        far)
+    assert torch.equal(bufs.cpu(), ref)
+
+
+@pytest.mark.parametrize("device", [
+    "cpu", pytest.param("cuda", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("h,w", [(258, 258), (1, 16), (16, 1)])
+def test_raster_place_refuses_grids_without_1_to_2_16_cells(device, h, w):
+    # the same refusal on both devices: a cell id fills 16 bits of the key
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    v = torch.zeros((1, h, w), device=device)
+    with pytest.raises(ValueError, match="1 to 2\\^16 cells"):
+        raster_place(v, v, v, 3, 0.8, 1.2)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("s,b,window", [
     (64, 4, 3), (128, 16, 3), (64, 4, 5), (128, 1, 3), (128, 1, 5),
@@ -113,7 +165,7 @@ def test_raster_kernels_match_plain(rng, cuda, s, b, window):
                         far)
     assert torch.equal(bufs.cpu(), ref)
     key = raster_tests(bufs, s, s, window, near, far).cpu()
-    # placement is two launches of place_kernel (collision pass, write pass)
+    # placement is two launches: place_collide_kernel, place_write_kernel
     assert _cuda.LAUNCHES["raster_place"] == 2
     assert _cuda.LAUNCHES["raster_tests"] == 1
     assert torch.equal(key, dense_winner_plain(ref, s, s, window, near, far))
@@ -145,8 +197,8 @@ def test_raster_mega_matches_buffers_path(rng, cuda, s, b):
     _cuda.reset_launches()
     got = raster_mega(vx.to(cuda), vy.to(cuda), vz.to(cuda), window, near,
                       far)
-    # the B3 entry is one placement (two place_kernel launches) and one
-    # tests_kernel launch
+    # the B3 entry is one placement (place_collide_kernel and
+    # place_write_kernel) and one tests_kernel launch
     assert _cuda.LAUNCHES["raster_place"] == 2
     assert _cuda.LAUNCHES["raster_tests"] == 1
     for g, w in zip(got, want):

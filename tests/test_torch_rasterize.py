@@ -4,6 +4,8 @@ training-scale warps at 64 px:
   * placement buffers and winner keys bit-equal to `_build_winner_buffers` +
     `_dense_winner_xla` (window 3 and 5; agreement >= 0.999 asserted,
     exact expected), and so the (cell, parity, covered) of `raster_mega`;
+  * placement buffers bit-equal on a folded warp, where faces collide in
+    their slots and some leave the padded viewport;
   * covered pixels agree with the exact `_winner_pass` z-buffer (>= 0.998);
   * depth within 1e-5, vertex gradients within 5e-5 relative;
   * renderer geometry, normals, warps, `warp_canon_depth` in each raster
@@ -73,6 +75,42 @@ def warps():
     return _warped_vertices(S)
 
 
+# large yaws and shifts: the step's far sheet folds over the near one, and
+# part of each grid leaves the padded viewport
+FOLD_VIEWS = [[0.1, 0.5, 0.0, 0.04, 0.0, 0.0],
+              [-0.2, -0.6, 0.1, -0.03, 0.02, 0.0],
+              [0.0, 0.7, -0.2, 0.0, -0.04, 0.05],
+              [0.3, -0.4, 0.0, 0.03, 0.03, 0.0]]
+
+
+def _folded_vertices(s):
+    """(vx, vy, vz) of a depth map with a steep step under FOLD_VIEWS, via
+    the JAX renderer."""
+    ys, xs = np.meshgrid(np.arange(s), np.arange(s), indexing="ij")
+    step = np.where(xs + 0.5 * ys < 0.6 * s, 0.95, 1.1).astype(np.float32)
+    b = len(FOLD_VIEWS)
+    r = j_render.Renderer(CFG, s, 0.9, 1.1)
+    rot, trans = j_render.get_transform_matrices(
+        jnp.asarray(FOLD_VIEWS, jnp.float32))
+    pts = r.get_warped_3d_grid(jnp.asarray(np.stack([step] * b)), rot, trans)
+    xs, ys, zs = r._project_screen(pts.reshape(b, -1, 3))
+    return [np.asarray(a).reshape(b, s, s) for a in (xs, ys, zs)]
+
+
+def _faces_in_viewport(vx, vy, pad):
+    """Faces whose half-pixel bbox start lies in the padded viewport: the
+    faces placement puts into a slot."""
+    h, w = vx.shape[1:]
+    n = 0
+    for tri in (((0, 0), (1, 0), (0, 1)), ((0, 1), (1, 0), (1, 1))):
+        bx2, by2 = (np.floor(2 * np.minimum.reduce(
+            [v[:, di:di + h - 1, dj:dj + w - 1] for di, dj in tri]))
+            for v in (vx, vy))
+        n += int(((bx2 >= -2 * pad) & (bx2 < 2 * (w + pad))
+                  & (by2 >= -2 * pad) & (by2 < 2 * (h + pad))).sum())
+    return n
+
+
 NEAR, FAR = 0.8, 1.2
 
 
@@ -104,6 +142,24 @@ def test_winner_buffers_and_keys_match_jax(warps, window):
     assert [a.dtype for a in got] == [np.float32, np.float32, np.bool_]
     for g, j in zip(got, (j_cell, j_par, j_cov)):
         np.testing.assert_array_equal(g, np.asarray(j))
+
+
+@pytest.mark.parametrize("window", [3, 5])
+def test_winner_buffers_match_jax_on_folded_warp(window):
+    """Placement bit-equal to `_build_winner_buffers` where faces collide in
+    their slots (a fold) and where some leave the padded viewport."""
+    vx, vy, vz = _folded_vertices(S)
+    jb = j_rast._build_winner_buffers(jnp.asarray(vx), jnp.asarray(vy),
+                                      jnp.asarray(vz), S, S, window, NEAR,
+                                      FAR)
+    tb = build_winner_buffers_plain(T(vx), T(vy), T(vz), window, NEAR, FAR)
+    wp = S + 2 * (window + 1)
+    for parity in (0, 1):
+        np.testing.assert_array_equal(_np(tb[parity]),
+                                      np.asarray(jb[parity])[..., :wp])
+    placed = _faces_in_viewport(vx, vy, window + 1)
+    won = int((tb[:, :, :, :, 9] >= 0).sum())
+    assert won < placed < 2 * vx.shape[0] * (S - 1) ** 2, (won, placed)
 
 
 def test_covered_pixels_agree_with_exact_zbuffer(warps):
