@@ -30,7 +30,14 @@ Phases, each of which must pass:
      every kernel's launch count zeroed just before and read just after;
      then a timed block of each step, the instance time it projects, and a
      torch.profiler window per step (device-busy share, top kernels);
-  7. one JSON line describing every kernel, the card line again, and last
+  7. the entry points, in a temporary folder holding a written data/face
+     set of 32 128-px PNGs with latents, on the face config of the port's
+     `load_config` (paths and depth overridden): `cli.train` in instance
+     mode on two images with checkpoints, `cli.evaluate --record-loss` on
+     them (reloads bit-equal, step-1 losses equal to the trainer's within
+     1e-6 relative), `--generalize` with batch_size 32 (its batched step 1
+     timed, launches counted) and `--load-pretrained` from its checkpoint;
+  8. one JSON line describing every kernel, the card line again, and last
      {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Kernel builds and run
@@ -316,7 +323,8 @@ def check_raster(results):
     worst = 0
     # window 3 is the training default; window 5 is the reach of the exact
     # z-buffer, of `raster_window: 5` and of the rasterizer check
-    for window, cases in ((3, ((128, 1), (128, 16), (64, 4))),
+    # B=32 at 128 px is the generalizing trainer's batched step 1
+    for window, cases in ((3, ((128, 1), (128, 16), (128, 32), (64, 4))),
                           (5, ((128, 16), (64, 4)))):
         for s, b in cases:
             renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
@@ -367,8 +375,9 @@ def check_raster(results):
                       f"of {n_faces}")
     # timings and bounds at the main path's calls, 128 px at B=16 (step 2's
     # pool, step 3) and B=1 (steps 1 and 3), at window 3 (the main path's;
-    # B=16 goes into the kernels line) and window 5
-    for b, window in ((16, 3), (16, 5), (1, 3), (1, 5)):
+    # B=16 goes into the kernels line) and window 5; and at B=32, window 3
+    # (the generalizing trainer's batched step 1)
+    for b, window in ((16, 3), (16, 5), (1, 3), (1, 5), (32, 3)):
         vx, vy, vz = training_warp(renderer, b, seed=7)
         bufs = R.raster_place(vx, vy, vz, window, near, far)
         place_ops, tests_ops, yard_ops, n_inside, n_cand = raster_ops(
@@ -460,8 +469,9 @@ def check_window(results):
     # the main path's (B, C) at 128 px: C=3 vertex fields and textures at
     # B=1 (steps 1, 3) and B=16 (step 2 pool, step 3), and C=6 at B=16, the
     # step-2 pseudo-sample render's image with its 3-channel mask in one
-    # fetch; the splat runs at C=3 only (no gradient reaches that render)
-    for b, c in ((1, 3), (16, 3), (16, 6)):
+    # fetch; the splat runs at C=3 only (no gradient reaches that render);
+    # C=3 at B=32 is the generalizing trainer's batched step 1
+    for b, c in ((1, 3), (16, 3), (16, 6), (32, 3)):
         s = 128
         src, iy, ix, gr = window_inputs(b, c, s, seed=b * 10 + c)
         out = W.fetch2x2(src, iy, ix)
@@ -485,9 +495,11 @@ def check_window(results):
         print(f"INFO splat2x2 C={c} B={b}: two calls bitwise equal {same}",
               flush=True)
     # timings at each kernel's largest main-path call, B=16 and 128 px: the
-    # fetch at C=6 (image + mask), the splat at C=3
-    b, s = 16, 128
-    for name, c in (("fetch2x2", 6), ("splat2x2", 3)):
+    # fetch at C=6 (image + mask), the splat at C=3 (these go into the
+    # kernels line); then both at the generalizing step 1's B=32, C=3
+    s = 128
+    for b, name, c in ((16, "fetch2x2", 6), (16, "splat2x2", 3),
+                       (32, "fetch2x2", 3), (32, "splat2x2", 3)):
         src, iy, ix, gr = window_inputs(b, c, s, seed=99)
         idx = flat_index(iy, ix, b, c, s)
         io_bytes = (b * c * s * s + b * 4 * c * s * s) * 4 + 2 * b * s * s * 4
@@ -514,10 +526,12 @@ def check_window(results):
         lib = cuda_ms(lib_fn)
         lib_times = device_times(lib_fn)
         lib_dev = sum(m * n for m, n in lib_times.values())
-        results[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev,
-                         "wrapper_device_ms": dev_call, "plain_ms": plain,
-                         "bound_ms": bms, "bound_by": by, "library_ms": lib,
-                         "library_device_ms": lib_dev}
+        if b == 16:
+            results[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev,
+                             "wrapper_device_ms": dev_call,
+                             "plain_ms": plain, "bound_ms": bms,
+                             "bound_by": by, "library_ms": lib,
+                             "library_device_ms": lib_dev}
         print(f"TIME {name}: {ms:.4f} ms, device {dev:.4f} ms per launch "
               f"({dev_call:.4f} ms per call: {parts}), plain {plain:.4f} ms, "
               f"library {lib:.4f} ms (device {lib_dev:.4f} ms: "
@@ -791,6 +805,314 @@ def report_profile(name, prof, wall_us, step_ms, n):
               f"{k[:110]}", flush=True)
 
 
+# ---------------- phase 7: the entry points ----------------
+
+ENTRY_IMAGES = 32  # the face config's batch_size: one generalizing batch
+ENTRY_STAGE = {"step1": 5, "step2": 5, "step3": 5}
+GENERALIZING_STAGE = {"step1": 13, "step2": 1, "step3": 1}
+
+
+class patched:
+    """Replace `owner.name` by `make(original)` inside a with block."""
+
+    def __init__(self, owner, name, make):
+        self.owner, self.name, self.make = owner, name, make
+
+    def __enter__(self):
+        self.had = self.name in vars(self.owner)
+        self.real = getattr(self.owner, self.name)
+        setattr(self.owner, self.name, self.make(self.real))
+
+    def __exit__(self, *exc):
+        if self.had:
+            setattr(self.owner, self.name, self.real)
+        else:
+            delattr(self.owner, self.name)
+
+
+def write_face_set(root, n, size, seed):
+    """A data/face set as download_data.py lays it out: list.txt, PNGs and
+    latents/*.pt."""
+    import os
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    folder = os.path.join(root, "data", "face")
+    os.makedirs(os.path.join(folder, "latents"))
+    names = []
+    for i in range(n):
+        name = f"{i:06d}.png"
+        Image.fromarray(rng.integers(0, 256, (size, size, 3),
+                                     dtype=np.uint8)).save(
+            os.path.join(folder, name))
+        torch.save(torch.from_numpy(rng.standard_normal(
+            (1, 512)).astype(np.float32)),
+            os.path.join(folder, "latents", name[:-4] + ".pt"))
+        names.append(name)
+    with open(os.path.join(folder, "list.txt"), "w") as f:
+        f.write("".join(n + "\n" for n in names))
+
+
+def all_finite(values):
+    return len(values) > 0 and all(math.isfinite(v) for v in values)
+
+
+def run_entry_points(card):
+    """`cli.train.run` and `cli.evaluate.run` on a written data/face set of
+    ENTRY_IMAGES 128-px images, with the face config from the port's
+    `load_config` (only paths and depth overridden), in a temporary folder:
+    (a) instance training of two images with checkpoints, (b) their
+    evaluation with --record-loss, (c) --generalize over one batch of 32,
+    (d) --load-pretrained from (c)'s checkpoint.  Returns the launch
+    counts of (c)'s batched step 1."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from gan2shape_torch.cli import evaluate as E
+    from gan2shape_torch.cli import train as T
+    from gan2shape_torch.core import checkpoint as C
+    from gan2shape_torch.core.dataset import ImageLatentDataset
+    from gan2shape_torch.core.trainer import GeneralizingTrainer
+    from gan2shape_torch.ops import _cuda
+    from gan2shape_torch.utils.config import load_config
+
+    root = Path(__file__).resolve().parent
+    here = os.getcwd()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_face_set(tmp, ENTRY_IMAGES, 128, seed=5)
+        config = load_config(
+            category="face", config_dir=str(root / "configs"),
+            minimal_config=str(root / "minimal_config.yml"),
+            overrides={"root_path": os.path.join(tmp, "data"),
+                       "our_nets_ckpts": {
+                           "VLADE_nets": os.path.join(tmp, "ckpts")},
+                       "n_epochs_prior": 20, "n_epochs_generalized": 1})
+        check(config["image_size"] == 128 and config["gan_size"] == 128
+              and config["channel_multiplier"] == 1
+              and config["n_proj_samples"] == 16
+              and config["batch_size"] == ENTRY_IMAGES,
+              f"face config from load_config: image {config['image_size']}, "
+              f"GAN {config['gan_size']}, channel_multiplier "
+              f"{config['channel_multiplier']}, n_proj_samples "
+              f"{config['n_proj_samples']}, batch_size "
+              f"{config['batch_size']}, prior {config['prior_name']}")
+        os.chdir(tmp)  # results/ goes here
+        try:
+            instance_and_evaluation(T, E, C, _cuda, config, tmp)
+            data = ImageLatentDataset(os.path.join(tmp, "data", "face"),
+                                      image_size=config["image_size"])
+            fitted, launches = generalizing(T, C, GeneralizingTrainer, _cuda,
+                                            config, data, card)
+            resume(T, C, config, fitted, data)
+        finally:
+            os.chdir(here)
+    print(f"TIME entry points phase: {time.perf_counter() - t_phase:.2f} s "
+          f"wall (train, evaluate, generalize, resume; {card})", flush=True)
+    return launches
+
+
+def instance_and_evaluation(T, E, C, _cuda, config, tmp):
+    """(a) and (b) of `run_entry_points`."""
+    import os
+
+    import numpy as np
+    import torch
+    from gan2shape_torch.core.dataset import ImageDataset
+
+    snapshots = {}
+
+    def snapshot_save(real):
+        def save(self, nets, img_idx, *rest):
+            snapshots[img_idx] = {n: {k: v.detach().clone() for k, v in
+                                      nets[n].state_dict().items()}
+                                  for n in C.NETS}
+            return real(self, nets, img_idx, *rest)
+        return save
+
+    args = T.parse_args(["--category", "face", "--save-ckpts", "--images",
+                         "0", "1"])
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    with patched(C.CheckpointManager, "save", snapshot_save):
+        trainer, history = T.run(config, args, stages=[ENTRY_STAGE])
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    print(f"cli.train instance mode: 2 images, prior "
+          f"{config['n_epochs_prior']} + {ENTRY_STAGE} in "
+          f"{time.perf_counter() - t0:.2f} s; launches {launches}",
+          flush=True)
+    files = os.listdir(os.path.join(tmp, "ckpts", "face"))
+    counts = {img: (sum(f.startswith(f"manifest_image_{img}_")
+                        for f in files),
+                    sum(f"_image_{img}_" in f and f.endswith(".pth")
+                        for f in files)) for img in (0, 1)}
+    losses = [x for h in history for k in ("losses_step1", "losses_step2",
+                                           "losses_step3") for x in h[k]]
+    check([h["image"] for h in history] == [0, 1]
+          and len(losses) == 2 * sum(ENTRY_STAGE.values())
+          and all_finite(losses) and counts == {0: (1, 5), 1: (1, 5)}
+          and sorted(snapshots) == [0, 1],
+          f"cli.train --save-ckpts: {len(losses)} losses finite, per image "
+          f"(manifests, .pth files) {counts}")
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    check(not missing, f"every kernel of the main path launched in "
+          f"cli.train (none missing: {missing})")
+
+    # (b) the evaluation reloads what the trainer saved
+    mgr = C.CheckpointManager(config["our_nets_ckpts"]["VLADE_nets"])
+    equal = {int(img): all(torch.equal(nets[n][k], v.cpu())
+                           for n in C.NETS
+                           for k, v in snapshots[int(img)][n].items())
+             for img, nets in mgr.load_per_image("face")}
+    check(equal == {0: True, 1: True},
+          f"reloaded state_dicts bit-equal to the trainer's: {equal}")
+    eargs = E.parse_args(["--category", "face", "--record-loss", "--images",
+                          "0", "1"])
+    t0 = time.perf_counter()
+    records = E.run(config, eargs)
+    torch.cuda.synchronize()
+    print(f"cli.evaluate --record-loss: {len(records)} images in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    images = ImageDataset(os.path.join(tmp, "data", "face"),
+                          image_size=config["image_size"])
+    worst = 0.0
+    for r in records:
+        C.load_nets(trainer.model, snapshots[r["image"]])
+        with torch.no_grad():
+            want, _ = trainer.model.forward_step1(torch.as_tensor(
+                images[r["image"]], device=trainer.device)[None])
+        worst = max(worst, abs(r["loss"] - float(want)) / abs(float(want)))
+    finite = all(bool(np.isfinite(r["recon"]).all()
+                      and np.isfinite(r["depth"]).all()) for r in records)
+    check([r["image"] for r in records] == [0, 1] and worst <= 1e-6
+          and finite and os.path.exists("results/step1_losses.npy"),
+          f"cli.evaluate: step-1 losses "
+          f"{[round(r['loss'], 6) for r in records]} from the checkpoints "
+          f"equal the trainer's in-memory model's within {worst:.2e} "
+          f"relative (<= 1e-6); reconstructions and depths finite")
+
+
+def generalizing(T, C, GeneralizingTrainer, _cuda, config, data, card):
+    """(c): --generalize over one batch of ENTRY_IMAGES with checkpoints;
+    the batched step 1 timed and its launches counted.  Returns the nets'
+    state after the fit."""
+    import numpy as np
+    import torch
+
+    step1 = []
+
+    def counted_step1(real):
+        def run_step1(self, images, n_iters):
+            torch.cuda.synchronize()
+            _cuda.reset_launches()
+            t = time.perf_counter()
+            out = real(self, images, n_iters)
+            torch.cuda.synchronize()
+            step1.append((images.shape[0], n_iters,
+                          time.perf_counter() - t, dict(_cuda.LAUNCHES)))
+            return out
+        return run_step1
+
+    args = T.parse_args(["--category", "face", "--save-ckpts",
+                         "--generalize"])
+    t0 = time.perf_counter()
+    with patched(GeneralizingTrainer, "run_step1", counted_step1):
+        trainer, history = T.run(config, args, stages=[GENERALIZING_STAGE])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    losses = ([h["loss_step1"] for h in history]
+              + [x for h in history for k in ("losses_step1", "losses_step2",
+                                              "losses_step3")
+                 for x in h.get(k, [])])
+    (m,) = C.CheckpointManager(config["our_nets_ckpts"]["VLADE_nets"]
+                               ).select("face", img_idx="")
+    check(len(history) == ENTRY_IMAGES and all_finite(losses)
+          and len(history[-1]["losses_step1"]) == GENERALIZING_STAGE["step1"]
+          and (m["image"], m["stage"]) == ("", 0)
+          and m["total_it"] == history[-1]["total_it"],
+          f"cli.train --generalize, batch_size {config['batch_size']}: "
+          f"{len(history)} image records, {len(losses)} losses finite, "
+          f"epoch-0 general checkpoint (image '{m['image']}', stage "
+          f"{m['stage']}, total_it {m['total_it']})")
+    (b, n, dt, launches), = step1
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    check(b == ENTRY_IMAGES and n == GENERALIZING_STAGE["step1"]
+          and not missing,
+          f"batched step 1 at B={b}, {n} iterations: launches {launches} "
+          f"(none missing: {missing})")
+    print(f"TIME generalizing step 1 at B={b} 128px: "
+          f"{dt * 1e3 / n:.2f} ms per iteration over the fit's {n}-iteration "
+          f"block (its invariants included); fit {fit_s:.2f} s (prior "
+          f"{config['n_epochs_prior']} at B={b}, {GENERALIZING_STAGE}; "
+          f"{card})", flush=True)
+    fitted = {n: {k: v.clone() for k, v in
+                  trainer.model.nets[n].state_dict().items()}
+              for n in C.NETS}
+    # a timed block of TIMED_ITERS after the fit, as phase 6 times its steps
+    images = torch.as_tensor(np.stack([data[i][0] for i in range(len(data))]),
+                             device=trainer.device)
+    trainer.run_step1(images, 1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, l1 = trainer.run_step1(images, TIMED_ITERS)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3 / TIMED_ITERS
+    check(all_finite([float(x) for x in l1]),
+          "timed generalizing step-1 losses finite")
+    print(f"TIME generalizing step 1 at B={ENTRY_IMAGES} 128px: {ms:.2f} ms "
+          f"per iteration over a timed block of {TIMED_ITERS} ({card})",
+          flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        trainer.run_step1(images, PROFILED_ITERS)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    try:
+        report_profile(f"generalizing step1 B={ENTRY_IMAGES}", prof, wall_us,
+                       ms, PROFILED_ITERS)
+    except Exception as exc:  # a measurement only: say so, run on
+        print(f"PROFILE generalizing step1: not measured ({exc!r})",
+              flush=True)
+    return fitted, launches
+
+
+def resume(T, C, config, fitted, data):
+    """(d): --load-pretrained from (c)'s checkpoint: the nets equal the
+    saved ones and the trainer's after its fit (`fitted`), and the prior
+    does not run."""
+    import torch
+
+    resumed = T.build_trainer(config, T.parse_args(
+        ["--category", "face", "--generalize", "--load-pretrained"]))
+    saved = C.CheckpointManager(
+        config["our_nets_ckpts"]["VLADE_nets"]).load_latest_general("face")
+    equal = all(torch.equal(v.cpu(), saved[n][k])
+                and torch.equal(v, fitted[n][k])
+                for n in C.NETS
+                for k, v in resumed.model.nets[n].state_dict().items())
+    priors = []
+    real_prior = resumed.run_prior
+    resumed.run_prior = lambda *a: priors.append(a) or real_prior(*a)
+    history = resumed.fit(data, stages=[{"step1": 1, "step2": 0,
+                                         "step3": 0}],
+                          batch_size=config["batch_size"])
+    check(equal and not priors
+          and all_finite([h["loss_step1"] for h in history]),
+          f"--load-pretrained: the loaded nets equal the saved ones {equal}, "
+          f"prior skipped {not priors}, {len(history)} records with finite "
+          "step-1 losses")
+
+
 def main(argv):
     import torch
 
@@ -829,6 +1151,7 @@ def main(argv):
             check_launches = run_check_path(results)
             run_modes_and_renders()
             launches = run_main_path()
+            gen_launches = run_entry_points(card)
     except Failed:
         return 1
     except RuntimeError as exc:  # a timing that found no device activity
@@ -853,6 +1176,7 @@ def main(argv):
             n = sum(extra["served_by"].values())
         else:
             n = launches[name]
+            extra["launches_generalizing_step1"] = gen_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         **results[name], **extra})

@@ -141,6 +141,14 @@ class GAN2Shape(nn.Module):
 
     # ---------------- initialization ----------------
 
+    def set_samplers(self, view_mvn, light_mvn, view_scale=None):
+        """Install view/light MVN stats ({"mean", "cov"} dicts)."""
+        self.view_light_sampler = ViewLightSampler(
+            view_mvn["mean"], view_mvn["cov"], light_mvn["mean"],
+            light_mvn["cov"],
+            self.config.get("view_scale", 1) if view_scale is None
+            else view_scale, device=self.device)
+
     def init_params(self, generator):
         """Seeded torch-default init of the five trainable nets."""
         for name in self.NETS:
@@ -155,8 +163,14 @@ class GAN2Shape(nn.Module):
                           self.generator.make_noise(generator)):
             buf.copy_(n)
         if self.truncation < 1:
-            with torch.no_grad():
-                self.mean_latent = self.generator.mean_latent(4096, None)
+            self.set_mean_latent()
+
+    def set_mean_latent(self):
+        """The truncation centre of the current generator: the mean of 4096
+        mapped draws from a seeded generator on the model's device."""
+        gen = torch.Generator(device=self.device).manual_seed(42)
+        with torch.no_grad():
+            self.mean_latent = self.generator.mean_latent(4096, gen)
 
     # ---------------- shared math ----------------
 

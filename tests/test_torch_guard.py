@@ -51,9 +51,15 @@ def test_port_import_loads_no_jax_module():
         "import gan2shape_torch, gan2shape_torch.core, "
         "gan2shape_torch.convert, gan2shape_torch.models, "
         "gan2shape_torch.ops, gan2shape_torch.rendering, "
-        "gan2shape_torch.tools\n"
+        "gan2shape_torch.tools, gan2shape_torch.cli, gan2shape_torch.utils\n"
         "import gan2shape_torch.ops._cuda\n"
         "import gan2shape_torch.tools.check_raster\n"
+        "import gan2shape_torch.cli.train, gan2shape_torch.cli.evaluate\n"
+        "import gan2shape_torch.convert.reference\n"
+        "import gan2shape_torch.core.checkpoint, "
+        "gan2shape_torch.core.dataset, gan2shape_torch.core.diagnostics, "
+        "gan2shape_torch.core.masking\n"
+        "import gan2shape_torch.utils.config, gan2shape_torch.utils.plotting\n"
         "sys.argv = ['chip_smoke.py', '--help']\n"
         "try:\n"
         "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
@@ -90,6 +96,24 @@ def test_entry_points_refuse_missing_cuda(monkeypatch):
     assert Renderer({}, 16, 0.9, 1.1, device="cpu").K.device.type == "cpu"
     assert ViewLightSampler.default(device="cpu").view_mean.device.type == \
         "cpu"
+
+
+@pytest.mark.parametrize("cli", ["train", "evaluate"])
+def test_cli_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, cli):
+    """Without --device the entry points ask for CUDA and stop before any
+    work when there is none; --device cpu is the only way onto the CPU."""
+    import importlib
+
+    module = importlib.import_module(f"gan2shape_torch.cli.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    args = module.parse_args(["--category", "face"])
+    assert args.DEVICE is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.run({"category": "face", "root_path": str(tmp_path)}, args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.main(["--category", "face"])
+    assert not (tmp_path / "results").exists()
 
 
 @pytest.mark.cuda
