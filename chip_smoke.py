@@ -7,7 +7,8 @@ Phases, each of which must pass:
   2. build the CUDA kernels from gan2shape_torch/csrc (one nvcc per source,
      all at once) into build/kernels/;
   3. hold every kernel against its plain PyTorch version on the card at the
-     main path's shapes (the raster kernels at windows 3 and 5, their
+     main path's shapes (B=1, 16 and 32; N and 16 * N of phase 9), (the
+     raster kernels at windows 3 and 5, their
      payload buffers and keys bit-equal, the placement also on a folded
      warp), and time the kernel's wrapper, the plain version and, where
      one exists, one PyTorch call of the same function (a yardstick only), by
@@ -29,7 +30,8 @@ Phases, each of which must pass:
      seeded random weights) runs `fit` on one random image and latent, with
      every kernel's launch count zeroed just before and read just after;
      then a timed block of each step, the instance time it projects, and a
-     torch.profiler window per step (device-busy share, top kernels);
+     torch.profiler window per step (device-busy share, the overlapping
+     kernels by stream, top kernels);
   7. the entry points, in a temporary folder holding a written data/face
      set of 32 128-px PNGs with latents, on the face config of the port's
      `load_config` (paths and depth overridden): `cli.train` in instance
@@ -37,7 +39,21 @@ Phases, each of which must pass:
      them (reloads bit-equal, step-1 losses equal to the trainer's within
      1e-6 relative), `--generalize` with batch_size 32 (its batched step 1
      timed, launches counted) and `--load-pretrained` from its checkpoint;
-  8. one JSON line describing every kernel, the card line again, and last
+  8. the masker: seeded random BiSeNet and PSPNet-50 weights written as
+     the reference's parsing checkpoints in a temporary folder, each
+     `MaskingModel` built on the card by `make_masking_model`, its masks
+     finite and in [0, 1], its logits against the same net's on the CPU,
+     one forward timed (BiSeNet at 512², PSPNet at 473²); then `cli.train
+     --n-instances 2` there, whose smoothed_confidence priors must come
+     from the net;
+  9. instances in parallel: the face-128 `InstanceParallelTrainer` at
+     N_INSTANCES runs phase 6's fit with the launch counts zeroed before
+     and read after, and must launch each kernel as often as phase 6's one
+     instance did (one launch covers all instances); instance 0's step-1
+     iteration-0 loss against a sequential Trainer's from the same init
+     within 1e-5; then timed blocks and profiler windows of each step, the
+     instance time it projects and the peak memory;
+  10. one JSON line describing every kernel, the card line again, and last
      {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Kernel builds and run
@@ -67,6 +83,9 @@ FACE128 = {
     "rot_center_depth": 1.0, "fov": 10,
 }
 STAGE = {"step1": 5, "step2": 5, "step3": 5}
+# instances trained at once in the instance-parallel phase: its step 2
+# renders and inverts 16 * N pseudo samples in one batch
+N_INSTANCES = 8
 TIMED_ITERS = 10
 PROFILED_ITERS = 3
 # the instance schedule of main.py: 1000 prior epochs, then stages
@@ -323,8 +342,11 @@ def check_raster(results):
     worst = 0
     # window 3 is the training default; window 5 is the reach of the exact
     # z-buffer, of `raster_window: 5` and of the rasterizer check
-    # B=32 at 128 px is the generalizing trainer's batched step 1
-    for window, cases in ((3, ((128, 1), (128, 16), (128, 32), (64, 4))),
+    # B=32 at 128 px is the generalizing trainer's batched step 1; B=N and
+    # 16 * N the instance-parallel trainer's steps 1 and 2-3
+    nb = N_INSTANCES * FACE128["n_proj_samples"]
+    for window, cases in ((3, ((128, 1), (128, 16), (128, 32), (64, 4),
+                               (128, N_INSTANCES), (128, nb))),
                           (5, ((128, 16), (64, 4)))):
         for s, b in cases:
             renderer = Renderer(FACE128, s, 0.9, 1.1, device="cuda")
@@ -333,8 +355,9 @@ def check_raster(results):
             key = R.raster_tests(bufs, s, s, window, near, far)
             torch.cuda.synchronize()
             covered = float((key != R.SENTINEL).float().mean())
-            # the plain version on the same inputs, on the card and the CPU
-            for where in ("cuda", "cpu"):
+            # the plain version on the same inputs, on the card and (up to
+            # B=32, where the host's time stays short) the CPU
+            for where in ("cuda", "cpu")[:2 if b <= 32 else 1]:
                 v = [t.to(where) for t in (vx, vy, vz)]
                 ref_bufs = R.build_winner_buffers_plain(*v, window, near, far)
                 ref_key = R.dense_winner_plain(ref_bufs, s, s, window, near,
@@ -375,9 +398,11 @@ def check_raster(results):
                       f"of {n_faces}")
     # timings and bounds at the main path's calls, 128 px at B=16 (step 2's
     # pool, step 3) and B=1 (steps 1 and 3), at window 3 (the main path's;
-    # B=16 goes into the kernels line) and window 5; and at B=32, window 3
-    # (the generalizing trainer's batched step 1)
-    for b, window in ((16, 3), (16, 5), (1, 3), (1, 5), (32, 3)):
+    # B=16 goes into the kernels line) and window 5; at B=32, window 3
+    # (the generalizing trainer's batched step 1); at B=N and 16 * N,
+    # window 3 (the instance-parallel trainer's)
+    for b, window in ((16, 3), (16, 5), (1, 3), (1, 5), (32, 3),
+                      (N_INSTANCES, 3), (nb, 3)):
         vx, vy, vz = training_warp(renderer, b, seed=7)
         bufs = R.raster_place(vx, vy, vz, window, near, far)
         place_ops, tests_ops, yard_ops, n_inside, n_cand = raster_ops(
@@ -470,8 +495,11 @@ def check_window(results):
     # B=1 (steps 1, 3) and B=16 (step 2 pool, step 3), and C=6 at B=16, the
     # step-2 pseudo-sample render's image with its 3-channel mask in one
     # fetch; the splat runs at C=3 only (no gradient reaches that render);
-    # C=3 at B=32 is the generalizing trainer's batched step 1
-    for b, c in ((1, 3), (16, 3), (16, 6), (32, 3)):
+    # C=3 at B=32 is the generalizing trainer's batched step 1; C=3 at B=N
+    # and C=3 and 6 at B=16 * N are the instance-parallel trainer's
+    nb = N_INSTANCES * FACE128["n_proj_samples"]
+    for b, c in ((1, 3), (16, 3), (16, 6), (32, 3), (N_INSTANCES, 3),
+                 (nb, 3), (nb, 6)):
         s = 128
         src, iy, ix, gr = window_inputs(b, c, s, seed=b * 10 + c)
         out = W.fetch2x2(src, iy, ix)
@@ -496,10 +524,14 @@ def check_window(results):
               flush=True)
     # timings at each kernel's largest main-path call, B=16 and 128 px: the
     # fetch at C=6 (image + mask), the splat at C=3 (these go into the
-    # kernels line); then both at the generalizing step 1's B=32, C=3
+    # kernels line); then both at the generalizing step 1's B=32, C=3, and
+    # at the instance-parallel trainer's B=N and 16 * N
     s = 128
     for b, name, c in ((16, "fetch2x2", 6), (16, "splat2x2", 3),
-                       (32, "fetch2x2", 3), (32, "splat2x2", 3)):
+                       (32, "fetch2x2", 3), (32, "splat2x2", 3),
+                       (N_INSTANCES, "fetch2x2", 3),
+                       (N_INSTANCES, "splat2x2", 3), (nb, "fetch2x2", 3),
+                       (nb, "fetch2x2", 6), (nb, "splat2x2", 3)):
         src, iy, ix, gr = window_inputs(b, c, s, seed=99)
         idx = flat_index(iy, ix, b, c, s)
         io_bytes = (b * c * s * s + b * 4 * c * s * s) * 4 + 2 * b * s * s * 4
@@ -686,6 +718,7 @@ def run_modes_and_renders():
 
 
 def run_main_path():
+    """Returns (launch counts of `fit`, ms/iter of each step)."""
     import numpy as np
     import torch
     from gan2shape_torch.core.trainer import Trainer
@@ -750,12 +783,13 @@ def run_main_path():
           f"{SCHEDULE} from these per-iteration times", flush=True)
     check(all(math.isfinite(float(x)) for x in l0 + l1 + l2 + l3),
           "timed-block losses finite")
-    profile_steps(trainer, img, lat, prior, collected, coll2,
-                  {k: v[0] for k, v in per_step.items()})
-    return launches
+    step_ms = {k: v[0] for k, v in per_step.items()}
+    profile_steps(trainer, img, lat, prior, collected, coll2, step_ms)
+    return launches, step_ms
 
 
-def profile_steps(trainer, img, lat, prior, collected, coll2, step_ms):
+def profile_steps(trainer, img, lat, prior, collected, coll2, step_ms,
+                  label=""):
     """One torch.profiler window of PROFILED_ITERS iterations per step:
     device-busy ms per iteration, its share of the unprofiled ms/iter of
     the timed block (`step_ms`; the profiler slows the host), CUDA kernels
@@ -778,14 +812,71 @@ def profile_steps(trainer, img, lat, prior, collected, coll2, step_ms):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t) * 1e6
         try:
-            report_profile(name, prof, wall_us, step_ms[name], n)
+            report_profile(label + name, prof, wall_us, step_ms[name], n)
         except Exception as exc:  # a measurement only: say so, run on
-            print(f"PROFILE {name}: not measured ({exc!r})", flush=True)
+            print(f"PROFILE {label}{name}: not measured ({exc!r})",
+                  flush=True)
+
+
+def busy_union_us(events):
+    """Microseconds in which at least one of `events` ran on the device:
+    activities that overlap in time count once."""
+    busy, end = 0.0, None
+    for start, stop in sorted((e.time_range.start, e.time_range.end)
+                              for e in events):
+        if end is None or start > end:
+            busy += stop - start
+            end = stop
+        elif stop > end:
+            busy += stop - end
+            end = stop
+    return busy
+
+
+def overlapping_pairs(events):
+    """(earlier, later, overlap us) for each device activity that starts
+    before the activity that has ended last so far ends."""
+    pairs, last = [], None
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        if last is not None and e.time_range.start < last.time_range.end:
+            pairs.append((last, e, min(e.time_range.end, last.time_range.end)
+                          - e.time_range.start))
+        if last is None or e.time_range.end > last.time_range.end:
+            last = e
+    return pairs
+
+
+def activity_label(e):
+    """An activity's stream and name, for the overlap report."""
+    return f"stream {e.device_resource_id} {e.name[:60]}"
+
+
+def report_overlaps(name, kernels, n):
+    """Which device activities overlap in time, by stream and name: the
+    overlapped time that `busy_union_us` counts once.  On the H100 they
+    are kernels on cuDNN's and cuFFT's side streams (grouped and FFT
+    convolutions), not annotation ranges."""
+    pairs = overlapping_pairs(kernels)
+    by_pair = {}
+    for a, b, us in pairs:
+        key = (activity_label(a), activity_label(b))
+        count, total = by_pair.get(key, (0, 0.0))
+        by_pair[key] = (count + 1, total + us)
+    streams = sorted({e.device_resource_id for e in kernels})
+    print(f"OVERLAP {name}: {len(pairs) / n:.1f} overlapping pairs/iter, "
+          f"{sum(p[2] for p in pairs) / n / 1e3:.3f} ms/iter overlapped; "
+          f"device streams {streams}", flush=True)
+    for (a, b), (count, us) in sorted(by_pair.items(),
+                                      key=lambda kv: -kv[1][1])[:2]:
+        print(f"  {count / n:6.1f}/iter {us / n / 1e3:8.3f} ms/iter  {a}  "
+              f"| {b}", flush=True)
 
 
 def report_profile(name, prof, wall_us, step_ms, n):
     kernels = device_events(prof)
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    report_overlaps(name, kernels, n)
+    sum_us = sum(e.time_range.elapsed_us() for e in kernels)
+    busy_us = busy_union_us(kernels)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
@@ -797,11 +888,12 @@ def report_profile(name, prof, wall_us, step_ms, n):
     print(f"PROFILE {name}: device busy {busy_ms:.2f} ms/iter = "
           f"{busy_ms / step_ms:.1%} of the unprofiled {step_ms:.2f} ms/iter "
           f"(idle {1 - busy_ms / step_ms:.1%}; profiled wall "
-          f"{wall_us / n / 1e3:.2f} ms/iter), {len(kernels) / n:.0f} device "
-          f"activities/iter, ported kernels {ours / max(busy_us, 1e-9):.2%}"
-          f" of device time", flush=True)
+          f"{wall_us / n / 1e3:.2f} ms/iter; the activities' own times sum "
+          f"to {sum_us / n / 1e3:.2f} ms/iter), {len(kernels) / n:.0f} "
+          f"device activities/iter, ported kernels "
+          f"{ours / max(sum_us, 1e-9):.2%} of device time", flush=True)
     for k, v in top:
-        print(f"  {v / busy_us:6.1%} {v / n / 1e3:8.3f} ms/iter "
+        print(f"  {v / sum_us:6.1%} {v / n / 1e3:8.3f} ms/iter "
               f"{k[:110]}", flush=True)
 
 
@@ -1113,6 +1205,239 @@ def resume(T, C, config, fitted, data):
           "step-1 losses")
 
 
+# ---------------- phase 8: the masker ----------------
+
+# (category, parsing file, net input size)
+MASKER_NETS = (("face", "bisenet.pth", 512), ("car", "pspnet_voc.pth", 473))
+MASKER_TOL = 1e-4  # of the largest |logit|: cuDNN against oneDNN, f32
+
+
+def random_parsing_state_dict(category, seed):
+    """A seeded random port BiSeNet / PSPNet-50 state_dict, BatchNorm
+    running statistics randomised."""
+    import torch
+    from gan2shape_torch.models.segmentation import BiSeNet, PSPNet
+
+    g = torch.Generator().manual_seed(seed)
+    net = (BiSeNet(n_classes=19) if category == "face"
+           else PSPNet(classes=21)).init_weights(g)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(0.05 * torch.randn(
+                    m.running_mean.shape, generator=g))
+                m.running_var.copy_(0.6 + 0.8 * torch.rand(
+                    m.running_var.shape, generator=g))
+    return net.state_dict()
+
+
+def run_masker(card):
+    """Random parsing checkpoints written in the reference's layout under
+    a temporary checkpoints/parsing/: each MaskingModel built on the card
+    by `make_masking_model`, its masks finite and in [0, 1], its logits
+    against the same net's on the CPU, one forward timed; then `cli.train
+    --n-instances 2` with the face config's smoothed_confidence prior,
+    whose priors must come from the net (not the fallback ellipse).
+    Returns {category: forward ms}."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from gan2shape_torch.cli import train as T
+    from gan2shape_torch.core import masking as M
+    from gan2shape_torch.core.priors import FallbackMasker, PriorGenerator
+    from gan2shape_torch.parallel import sharding
+    from gan2shape_torch.utils.config import load_config
+
+    root = Path(__file__).resolve().parent
+    here = os.getcwd()
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            os.makedirs(os.path.join("checkpoints", "parsing"))
+            rng = np.random.default_rng(8)
+            image = rng.uniform(-1, 1, (1, 3, 128, 128)).astype(np.float32)
+            for category, filename, size in MASKER_NETS:
+                sd = random_parsing_state_dict(category, seed=size)
+                torch.save({"state_dict": {f"module.{k}": v
+                                           for k, v in sd.items()}},
+                           os.path.join("checkpoints", "parsing", filename))
+                masker = M.make_masking_model(category, 128, device="cuda")
+                conf = masker.confidence_mask(image)
+                hard = masker.image_mask(image)
+                ok = all(bool(np.isfinite(m).all() and m.min() >= 0
+                              and m.max() <= 1) for m in (conf, hard))
+                check(isinstance(masker, M.MaskingModel)
+                      and next(masker.net.parameters()).is_cuda and ok
+                      and conf.shape == hard.shape == (1, 128, 128),
+                      f"{category} MaskingModel from {filename} on the card:"
+                      f" confidence and hard masks finite, in [0, 1], "
+                      f"(1, 128, 128)")
+                x = torch.as_tensor(rng.uniform(-1, 1, (1, 3, size, size))
+                                    .astype(np.float32), device="cuda")
+                with torch.no_grad():
+                    got = masker.net(x).cpu()
+                    want = M.MaskingModel(category, 128, state_dict=sd,
+                                          device="cpu").net(x.cpu())
+                scale = float(want.abs().max())
+                err = float((got - want).abs().max())
+                check(err <= MASKER_TOL * scale,
+                      f"{category} net logits at 1x3x{size}^2, card against "
+                      f"CPU (TF32 off): max abs err {err:.3e} at scale "
+                      f"{scale:.3e} (<= {MASKER_TOL} of it)")
+                with torch.no_grad():
+                    fn = lambda: masker.net(x)  # noqa: E731
+                    ms = cuda_ms(fn, reps=10)
+                    dev = sum(m * n for m, n in device_times(
+                        fn, reps=5).values())
+                times[category] = ms
+                print(f"TIME masker {category} forward at 1x3x{size}^2: "
+                      f"{ms:.3f} ms by CUDA events, {dev:.3f} ms of device "
+                      f"time by torch.profiler ({card})", flush=True)
+            # the masker behind the priors of cli.train --n-instances
+            write_face_set(tmp, 2, 128, seed=9)
+            config = load_config(
+                category="face", config_dir=str(root / "configs"),
+                minimal_config=str(root / "minimal_config.yml"),
+                overrides={"root_path": os.path.join(tmp, "data"),
+                           "our_nets_ckpts": {"VLADE_nets": os.path.join(
+                               tmp, "ckpts")},
+                           "n_epochs_prior": 5})
+            seen = []
+
+            def capture(real):
+                def fit(self, images, latents, priors=None, **kw):
+                    seen.append((self.prior_generator.masking_model, images,
+                                 priors))
+                    return real(self, images, latents, priors, **kw)
+                return fit
+
+            args = T.parse_args(["--category", "face", "--n-instances",
+                                 "2"])
+            with patched(sharding.InstanceParallelTrainer, "fit", capture):
+                _, history = T.run(config, args, stages=[
+                    {"step1": 1, "step2": 1, "step3": 1}])
+            (masker, images, priors), = seen
+            size = config["image_size"]
+            fallback = PriorGenerator(
+                size, "face", config["prior_name"],
+                masking_model=FallbackMasker(size))
+            gap = max(float(np.abs(priors[i] - fallback(images[i])[0]).max())
+                      for i in range(2))
+            check(config["prior_name"] == "smoothed_confidence"
+                  and isinstance(masker, M.MaskingModel)
+                  and len(history) == 2 and gap > 1e-3,
+                  f"cli.train --n-instances 2: {config['prior_name']} priors"
+                  f" from the BiSeNet masker, {gap:.3e} from the fallback "
+                  f"masker's at most")
+        finally:
+            os.chdir(here)
+    return times
+
+
+# ---------------- phase 9: instances in parallel ----------------
+
+
+def run_instances(card, seq_launches, seq_step_ms):
+    """The face-128 InstanceParallelTrainer at N_INSTANCES on the card:
+    phase 6's fit with the launch counts zeroed before and read after (each
+    kernel launched as often as in phase 6's one-instance fit), instance
+    0's step-1 iteration-0 loss against a sequential Trainer's from the
+    same init, then a timed block and a profiler window of each step.
+    Returns the fit's launch counts."""
+    import numpy as np
+    import torch
+    from gan2shape_torch.core.trainer import Trainer
+    from gan2shape_torch.ops import _cuda
+    from gan2shape_torch.parallel import InstanceParallelTrainer
+
+    n = N_INSTANCES
+    t0 = time.perf_counter()
+    trainer = InstanceParallelTrainer(FACE128, n, seed=0)
+    seq = Trainer(FACE128, seed=0)
+    rng = np.random.default_rng(10)
+    size = FACE128["image_size"]
+    images = rng.uniform(-1, 1, (n, 3, size, size)).astype(np.float32)
+    latents = rng.standard_normal((n, 512)).astype(np.float32)
+    priors = np.stack([trainer.prior_generator(im)[0] for im in images])
+    print(f"instance-parallel trainer of {n} built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    img = torch.as_tensor(images, device="cuda")
+    lat = torch.as_tensor(latents, device="cuda")
+    with torch.no_grad():
+        batched, _ = trainer.model.step1_iter(
+            img, trainer.model.step1_invariants(img))
+        alone, _ = seq.model.step1_iter(
+            img[:1], seq.model.step1_invariants(img[:1]))
+    rel = abs(float(batched[0]) - float(alone)) / abs(float(alone))
+    check(batched.shape == (n,) and rel <= 1e-5,
+          f"instance 0's step-1 iteration-0 loss {float(batched[0]):.7f} "
+          f"against a sequential Trainer's {float(alone):.7f} from the same "
+          f"init and image: {rel:.2e} relative (<= 1e-5)")
+    del seq
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.fit(images, latents, priors, stages=[STAGE])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    print(f"instance-parallel fit of {n} (prior {FACE128['n_epochs_prior']} "
+          f"+ {STAGE}) in {fit_s:.2f} s; launches {launches}", flush=True)
+    losses = [x for h in history for k in ("losses_step1", "losses_step2",
+                                           "losses_step3") for x in h[k]]
+    check(len(history) == n and all_finite(losses)
+          and len(losses) == n * sum(STAGE.values()),
+          f"{n} instances' fit losses finite ({len(losses)} losses)")
+    same = {k: (launches[k], seq_launches[k]) for k in MAIN_PATH}
+    check(all(a == b > 0 for a, b in same.values()),
+          f"each kernel launched as often for {n} instances as for one "
+          f"(instances, one): {same}")
+
+    per_step = {}
+    k = TIMED_ITERS
+    prior = torch.as_tensor(priors, device="cuda")
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        per_step[name] = (time.perf_counter() - t) * 1e3 / k
+        return out
+
+    l0 = timed("prior", lambda: trainer.run_prior(img, prior, k))
+    collected, l1 = timed("step1", lambda: trainer.run_step1(img, k))
+    coll2, l2 = timed("step2", lambda: trainer.run_step2(img, lat, collected,
+                                                         k))
+    l3 = timed("step3", lambda: trainer.run_step3(img, lat, coll2, k))
+    check(all(bool(torch.isfinite(x).all()) for x in l0 + l1 + l2 + l3),
+          "instance-parallel timed-block losses finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, ms in per_step.items():
+        print(f"STEP instances {name}: {ms:.2f} ms/iter for {n} instances "
+              f"({ms / n:.2f} ms an instance-iteration; one instance alone "
+              f"{seq_step_ms[name]:.2f}) over {k} iterations", flush=True)
+    step_ms = sum(per_step[s] for s in ("step1", "step2", "step3"))
+    alone_ms = sum(seq_step_ms[s] for s in ("step1", "step2", "step3"))
+    print(f"INSTANCE-ITERS/S {3e3 * n / step_ms:.3f} (step1+2+3 mix, {n} "
+          f"instances; one instance alone {3e3 / alone_ms:.3f})", flush=True)
+    projected = sum(c * per_step[s] for s, c in SCHEDULE.items()) / 1e3 / n
+    alone = sum(c * seq_step_ms[s] for s, c in SCHEDULE.items()) / 1e3
+    print(f"INSTANCE {projected:.1f} s projected per instance at N={n} for "
+          f"the face schedule {SCHEDULE} (phase 6's one instance: "
+          f"{alone:.1f} s); peak memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); {card}", flush=True)
+    profile_steps(trainer, img, lat, prior, collected, coll2, per_step,
+                  label=f"instances N={n} ")
+    return launches
+
+
 def main(argv):
     import torch
 
@@ -1150,8 +1475,10 @@ def main(argv):
             check_raster_gradients()
             check_launches = run_check_path(results)
             run_modes_and_renders()
-            launches = run_main_path()
+            launches, step_ms = run_main_path()
             gen_launches = run_entry_points(card)
+            run_masker(card)
+            inst_launches = run_instances(card, launches, step_ms)
     except Failed:
         return 1
     except RuntimeError as exc:  # a timing that found no device activity
@@ -1177,6 +1504,7 @@ def main(argv):
         else:
             n = launches[name]
             extra["launches_generalizing_step1"] = gen_launches[name]
+            extra[f"launches_{N_INSTANCES}_instances"] = inst_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         **results[name], **extra})

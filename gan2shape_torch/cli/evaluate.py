@@ -92,7 +92,8 @@ def run(config, args):
     model = GAN2Shape(config, device=device)
     build_frozen_assets(model, config)
     mgr = CheckpointManager(config["our_nets_ckpts"]["VLADE_nets"])
-    masker = make_masking_model(args.CATEGORY, config["image_size"])
+    masker = make_masking_model(args.CATEGORY, config["image_size"],
+                                device=device)
 
     records = []
     for img_idx, nets in _checkpoints(mgr, args, len(dataset)):

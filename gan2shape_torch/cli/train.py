@@ -15,10 +15,13 @@ reference assets (StyleGAN2 checkpoint, VGG16 and LPIPS heads, view / light
 MVN) load from the config's paths; a missing file leaves seeded random
 weights, with a warning.
 
+`--n-instances K` trains the first min(K, len(data)) images at once on the
+one device (`parallel.InstanceParallelTrainer`), with the instance schedule
+and priors from the default prior generator.
+
 `--device` defaults to CUDA and there is no CPU fallback: a missing GPU is an
-error (`--device cpu` runs on the CPU on purpose).  Multi-instance and
-multi-host training (`--n-instances`, `--distributed`) are not ported
-(ROADMAP A9) and are refused.
+error (`--device cpu` runs on the CPU on purpose).  Multi-host training
+(`--distributed`) is not ported (ROADMAP A9) and is refused.
 """
 
 import argparse
@@ -60,8 +63,8 @@ def parse_args(argv=None):
                         default=None, nargs="+")
     parser.add_argument("--n-instances", dest="N_INSTANCES", type=int,
                         default=0,
-                        help="parallel instances: not ported (ROADMAP A9); "
-                             "only 0 is accepted")
+                        help="train this many images at once on the one "
+                             "device (0: one after another)")
     parser.add_argument("--distributed", dest="DISTRIBUTED",
                         action="store_true",
                         help="multi-host training: not ported (ROADMAP A9)")
@@ -71,13 +74,18 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
+def instance_parallel(args):
+    return args.N_INSTANCES > 0 and not args.GENERALIZE
+
+
 def refuse_unported(args):
-    """Multi-instance and multi-host runs are refused, never ignored: the
-    env vars of the JAX package's multi-host runtime count as asking."""
-    if args.N_INSTANCES > 0:
+    """Multi-host runs are refused, never ignored: the env vars of the JAX
+    package's multi-host runtime count as asking.  So is a resume of
+    instances trained at once, which the JAX package ignores."""
+    if instance_parallel(args) and args.LOAD_PRETRAINED:
         raise NotImplementedError(
-            "--n-instances (instances in parallel across devices) is not "
-            "ported yet (ROADMAP A9)")
+            "--load-pretrained resumes sequential or --generalize runs, not "
+            "--n-instances ones")
     env = [k for k in _MULTIHOST_ENV if os.environ.get(k)]
     if os.environ.get("G2S_MULTIHOST") == "1":
         env.append("G2S_MULTIHOST")
@@ -141,6 +149,9 @@ def run(config, args, stages=None):
         print(">>> Warning, not saving checkpoints. "
               "Rerun with --save-ckpts for a real run <<<")
         time.sleep(0.5)
+    if instance_parallel(args):
+        return run_instances(config, args, images_latents,
+                             stages or INSTANCE_STAGES)
     trainer = build_trainer(config, args)
     if args.GENERALIZE:
         history = trainer.fit(images_latents,
@@ -149,6 +160,31 @@ def run(config, args, stages=None):
     else:
         history = trainer.fit(images_latents,
                               stages=stages or INSTANCE_STAGES)
+    return trainer, history
+
+
+def run_instances(config, args, images_latents, stages):
+    """main.py's --n-instances branch on one device: the first
+    min(K, len(data)) images, their priors from the trainer's default prior
+    generator (the segmentation masker when a parsing checkpoint exists),
+    trained at once.  Returns (trainer, history)."""
+    import numpy as np
+
+    from gan2shape_torch.convert.reference import build_frozen_assets
+    from gan2shape_torch.parallel import InstanceParallelTrainer
+
+    n = min(args.N_INSTANCES, len(images_latents))
+    trainer = InstanceParallelTrainer(config, n_instances=n,
+                                      save_ckpts=args.SAVE_CKPTS,
+                                      device=args.DEVICE)
+    build_frozen_assets(trainer.model, config)
+    images, latents, indices = zip(*(images_latents[i] for i in range(n)))
+    priors = [trainer.prior_generator(im)[0] for im in images]
+    history = trainer.fit(
+        np.stack(images), np.stack([np.asarray(x).reshape(-1)
+                                    for x in latents]),
+        np.stack(priors), stages=stages,
+        data_indices=[int(i) for i in indices])
     return trainer, history
 
 

@@ -1,20 +1,35 @@
 """Training losses: masked L1, second-order smoothness, discriminator
-feature matching."""
+feature matching.
+
+The batch axis holds `n` independent instances in contiguous groups of
+equal size, and each loss is the (n,) vector of the per-instance losses;
+n = 1, the default, is one loss over the whole batch."""
 
 import torch
 
 EPS = 1e-7
 
 
-def photometric_loss(image1, image2, mask=None, conf_sigma=None):
+def instance_mean(x, n=1):
+    """The (n,) means of x's n leading-axis groups."""
+    return x.reshape(n, -1).mean(1)
+
+
+def masked_mean(x, mask, n=1):
+    """The (n,) sum(x * mask) / sum(mask) of x's n leading-axis groups."""
+    mask = mask.expand_as(x)
+    return ((x * mask).reshape(n, -1).sum(1)
+            / torch.clamp_min(mask.reshape(n, -1).sum(1), EPS))
+
+
+def photometric_loss(image1, image2, mask=None, conf_sigma=None, n=1):
     loss = torch.abs(image1 - image2)
     if conf_sigma is not None:
         loss = (loss * 2 ** 0.5 / (conf_sigma + EPS)
                 + torch.log(conf_sigma + EPS))
     if mask is not None:
-        mask = mask.expand_as(loss)
-        return torch.sum(loss * mask) / torch.clamp_min(torch.sum(mask), EPS)
-    return torch.mean(loss)
+        return masked_mean(loss, mask, n)
+    return instance_mean(loss, n)
 
 
 def _gradient(pred):
@@ -23,7 +38,7 @@ def _gradient(pred):
     return pred[:, :, 1:] - pred[:, :, :-1], pred[:, 1:] - pred[:, :-1]
 
 
-def smooth_loss(pred_map):
+def smooth_loss(pred_map, n=1):
     """mean |d2| over dxx, dxy, dyx, dyy, with 1/2.3 multi-scale weights."""
     if not isinstance(pred_map, (tuple, list)):
         pred_map = [pred_map]
@@ -33,14 +48,14 @@ def smooth_loss(pred_map):
         dx, dy = _gradient(scaled)
         dx2, dxdy = _gradient(dx)
         dydx, dy2 = _gradient(dy)
-        loss = loss + weight * (dx2.abs().mean() + dxdy.abs().mean()
-                                + dydx.abs().mean() + dy2.abs().mean())
+        loss = loss + weight * sum(instance_mean(d.abs(), n)
+                                   for d in (dx2, dxdy, dydx, dy2))
         weight = weight / 2.3
     return loss
 
 
 def discriminator_feature_loss(disc, fake_img, real_img, mask=None,
-                               ftr_num=4):
+                               ftr_num=4, n=1):
     """L1 over the first `ftr_num` discriminator taps, with the mask
     average-pooled to each tap's resolution; the real pass carries no
     gradient."""
@@ -54,9 +69,8 @@ def discriminator_feature_loss(disc, fake_img, real_img, mask=None,
             b, c, h, w = diff.shape
             hm, wm = mask.shape[2], mask.shape[3]
             m = mask.reshape(mask.shape[0], mask.shape[1], h, hm // h, w,
-                             wm // w).mean(dim=(3, 5)).expand_as(diff)
-            losses.append(torch.sum(diff * m)
-                          / torch.clamp_min(torch.sum(m), EPS))
+                             wm // w).mean(dim=(3, 5))
+            losses.append(masked_mean(diff, m, n))
         else:
-            losses.append(torch.mean(diff))
+            losses.append(instance_mean(diff, n))
     return sum(losses)

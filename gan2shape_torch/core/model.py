@@ -9,6 +9,14 @@ per block under torch.no_grad().
 
 Deliberate choices carried over from the JAX package: per-image depth
 mean-centering, and a step-1 photometric loss over the whole batch.
+
+Instances.  The batch holds `n_instances` = N independent instances in
+contiguous groups (N > 1 is set by `parallel.InstanceParallelTrainer`, whose
+`nets` map N stacked copies of each net over the N groups): every loss is
+the (N,) vector of per-instance losses, step 2's and step 3's per-instance
+draws and samples are contiguous groups, and nothing takes a statistic
+across instances.  The default N = 1 is one problem over the whole batch,
+with a (1,) loss.
 """
 
 import math
@@ -19,7 +27,7 @@ import torch
 import torch.nn as nn
 
 from gan2shape_torch.core.losses import (
-    discriminator_feature_loss, photometric_loss, smooth_loss,
+    discriminator_feature_loss, instance_mean, photometric_loss, smooth_loss,
 )
 from gan2shape_torch.device import resolve_device
 from gan2shape_torch.models import networks
@@ -127,6 +135,7 @@ class GAN2Shape(nn.Module):
         for m in (self.generator, self.discriminator, self.lpips):
             m.requires_grad_(False)
         self.mean_latent = None
+        self.n_instances = 1
 
         border = np.zeros((1, s, s), np.float32)
         border[:, :, :2] = 1.02  # the reference's literal pad value
@@ -214,6 +223,14 @@ class GAN2Shape(nn.Module):
         texture = (albedo / 2 + 0.5) * shading * 2 - 1
         return diffuse, texture
 
+    def _each(self, x, k):
+        """The first sample of each instance, each repeated k times:
+        (instances * k, ...)."""
+        n = self.n_instances
+        first = x.reshape(n, -1, *x.shape[1:])[:, 0]
+        return first[:, None].expand(n, k, *first.shape[1:]).reshape(
+            n * k, *first.shape[1:])
+
     def _recon_mask(self, recon_depth):
         margin = (self.max_depth - self.min_depth) / 2
         return (recon_depth < self.max_depth + margin).to(
@@ -227,7 +244,8 @@ class GAN2Shape(nn.Module):
         depth = self.rescale_depth(torch.tanh(centered))
         if prior.dim() == 2:
             prior = prior[None]
-        return torch.mean((depth - prior.detach()) ** 2), depth
+        return instance_mean((depth - prior.detach()) ** 2,
+                             self.n_instances), depth
 
     # ---------------- step 1 ----------------
 
@@ -254,10 +272,11 @@ class GAN2Shape(nn.Module):
         if eval_mode:
             return recon_im, recon_depth
 
-        loss_l1 = photometric_loss(recon_im, images, mask=recon_mask)
-        loss_perc = torch.mean(self.lpips(recon_im * recon_mask,
-                                          images * recon_mask))
-        loss_smooth = smooth_loss(depth) + smooth_loss(diffuse)
+        n = self.n_instances
+        loss_l1 = photometric_loss(recon_im, images, mask=recon_mask, n=n)
+        loss_perc = instance_mean(self.lpips(recon_im * recon_mask,
+                                             images * recon_mask), n)
+        loss_smooth = smooth_loss(depth, n) + smooth_loss(diffuse, n)
         loss = (loss_l1 + self.lam_perc * loss_perc
                 + self.lam_smooth * loss_smooth)
         return loss, (normal, light_a, light_b, albedo, depth)
@@ -280,7 +299,8 @@ class GAN2Shape(nn.Module):
                    + light_b.reshape(-1, 1, 1, 1) * diffuse)
         recon_depth = self.renderer.warp_canon_depth(depth, rot, trans)
         grid = self.renderer.get_inv_warped_2d_grid(recon_depth, rot, trans)
-        loss_smooth = smooth_loss(depth) + smooth_loss(diffuse)
+        loss_smooth = (smooth_loss(depth, self.n_instances)
+                       + smooth_loss(diffuse, self.n_instances))
         return {"depth": depth, "normal": normal, "light_a": light_a,
                 "light_b": light_b, "shading": shading, "grid": grid,
                 "recon_mask": self._recon_mask(recon_depth),
@@ -293,8 +313,10 @@ class GAN2Shape(nn.Module):
         texture = (albedo / 2 + 0.5) * inv["shading"] * 2 - 1
         recon_im = torch.clamp(grid_sample(texture, inv["grid"]), -1.0, 1.0)
         mask = inv["recon_mask"]
-        loss_l1 = photometric_loss(recon_im, images, mask=mask)
-        loss_perc = torch.mean(self.lpips(recon_im * mask, images * mask))
+        n = self.n_instances
+        loss_l1 = photometric_loss(recon_im, images, mask=mask, n=n)
+        loss_perc = instance_mean(self.lpips(recon_im * mask, images * mask),
+                                  n)
         loss = (loss_l1 + self.lam_perc * loss_perc
                 + self.lam_smooth * inv["loss_smooth"])
         return loss, albedo
@@ -304,43 +326,49 @@ class GAN2Shape(nn.Module):
     @torch.no_grad()
     def sample_pseudo_imgs(self, generator, n_images, normal, light_a,
                            light_b, albedo, depth):
+        """`n_images` pseudo samples of each instance's first image under
+        random lights and views (instance-major, one draw for all)."""
         h = w = self.image_size
         dev = depth.device
+        total = self.n_instances * n_images
         x_min, x_max, y_min, y_max, d_min, d_max, alpha = self.rand_light
         lo = torch.tensor([x_min, y_min], device=dev)
         hi = torch.tensor([x_max, y_max], device=dev)
-        dxy = lo + torch.rand(n_images, 2, generator=generator,
+        dxy = lo + torch.rand(total, 2, generator=generator,
                               device=dev) * (hi - lo)
-        light_d = torch.cat([dxy, dxy.new_ones((n_images, 1))], 1)
+        light_d = torch.cat([dxy, dxy.new_ones((total, 1))], 1)
         light_d = light_d / torch.sqrt(torch.sum(light_d ** 2, 1,
                                                  keepdim=True))
-        rand_diffuse_shading = self._diffuse(normal[:1], light_d)
-        rand = d_min + torch.rand(n_images, 1, 1, 1, generator=generator,
+        rand_diffuse_shading = self._diffuse(self._each(normal, n_images),
+                                             light_d)
+        rand = d_min + torch.rand(total, 1, 1, 1, generator=generator,
                                   device=dev) * (d_max - d_min)
-        rand_diffuse = (light_b[0].reshape(1, 1, 1, 1) + rand) \
-            * rand_diffuse_shading
-        rand_shading = light_a[0].reshape(1, 1, 1, 1) + alpha * rand \
-            + rand_diffuse
-        rand_light_im = (albedo[:1] / 2 + 0.5) * rand_shading * 2 - 1
+        rand_diffuse = (self._each(light_b, n_images).reshape(-1, 1, 1, 1)
+                        + rand) * rand_diffuse_shading
+        rand_shading = (self._each(light_a, n_images).reshape(-1, 1, 1, 1)
+                        + alpha * rand + rand_diffuse)
+        rand_light_im = ((self._each(albedo, n_images) / 2 + 0.5)
+                         * rand_shading * 2 - 1)
 
-        mask = torch.ones((n_images, 3, h, w), device=dev)
-        views = self.view_light_sampler.sample(generator, n_images, "view")
-        depth_n = depth[:1].expand(n_images, h, w)
+        mask = torch.ones((total, 3, h, w), device=dev)
+        views = self.view_light_sampler.sample(generator, total, "view")
         pseudo, mask = self.renderer.render_given_view(
-            rand_light_im, depth_n, self.get_view_transformation(views),
-            mask=mask)
+            rand_light_im, self._each(depth, n_images),
+            self.get_view_transformation(views), mask=mask)
         return torch.clamp(pseudo, -1.0, 1.0), mask[:, :1]
 
     # ---------------- step 2 ----------------
 
     def latent_projection(self, image, gan_im, latent, center_w, center_h):
         offset = self.nets["offset_encoder"](image)
+        k = image.shape[0] // latent.shape[0]
         if self.relative_encoding:
-            offset = offset - self.nets["offset_encoder"](gan_im)
+            offset = offset - self._each(self.nets["offset_encoder"](gan_im),
+                                         k)
         skip = self.generator.n_mlp - self.F1_d
         offset = self.generator.style_forward(offset + center_h,
                                               skip=skip) - center_w
-        return offset, latent + offset
+        return offset, self._each(latent, k) + offset
 
     @torch.no_grad()
     def step2_invariants(self, latent):
@@ -375,14 +403,16 @@ class GAN2Shape(nn.Module):
             mean_latent=self.mean_latent)
         projected_image = resize(projected_image,
                                  (self.image_size, self.image_size))
-        loss_l1 = photometric_loss(projected_image, pseudo_im, mask=mask)
+        n = self.n_instances
+        loss_l1 = photometric_loss(projected_image, pseudo_im, mask=mask,
+                                   n=n)
         # image_size inputs into the gan_size discriminator: the ftr_num
         # early exit keeps the spatial dims valid
         loss_rec = discriminator_feature_loss(
             self.discriminator, projected_image, pseudo_im, mask=mask,
-            ftr_num=self.disc_ftr_num)
+            ftr_num=self.disc_ftr_num, n=n)
         loss = (loss_l1 + loss_rec
-                + self.lam_regular * torch.mean(offset ** 2))
+                + self.lam_regular * instance_mean(offset ** 2, n))
         return loss, (projected_image.detach(), mask.detach())
 
     def forward_step2(self, latent, collected, generator, n_proj_samples=8,
@@ -397,9 +427,11 @@ class GAN2Shape(nn.Module):
 
     def forward_step3(self, images, latents, collected):
         projected_samples, masks = (c.detach() for c in collected)
-        b = projected_samples.shape[0]
+        k = projected_samples.shape[0] // self.n_instances
         step1_loss, c = self.forward_step1(images, step1=False)
         normal, _, _, albedo, depth = c
+        normal, albedo, depth = (self._each(x, k)
+                                 for x in (normal, albedo, depth))
 
         view = (self.nets["viewpoint"](projected_samples)
                 + self.view_light_sampler.view_mean[None])
@@ -410,16 +442,16 @@ class GAN2Shape(nn.Module):
         _, texture = self.get_shading(normal, light_a, light_b, light_d,
                                       albedo)
 
-        h = w = self.image_size
-        depth_b = depth[:1].expand(b, h, w)
-        recon_depth = self.renderer.warp_canon_depth(depth_b, rot, trans)
+        recon_depth = self.renderer.warp_canon_depth(depth, rot, trans)
         grid = self.renderer.get_inv_warped_2d_grid(recon_depth, rot, trans)
         recon_mask = self._recon_mask(recon_depth) * masks
         recon_im = torch.clamp(grid_sample(texture, grid), -1.0, 1.0)
+        n = self.n_instances
         loss_l1 = photometric_loss(recon_im, projected_samples,
-                                   mask=recon_mask)
-        loss_perc = torch.mean(self.lpips(recon_im * recon_mask,
-                                          projected_samples * recon_mask))
+                                   mask=recon_mask, n=n)
+        loss_perc = instance_mean(self.lpips(recon_im * recon_mask,
+                                             projected_samples * recon_mask),
+                                  n)
         return step1_loss + loss_l1 + self.lam_perc * loss_perc, None
 
     # ---------------- evaluation ----------------

@@ -2,8 +2,9 @@
 host-side preprocessing step per image): box, masked_box, smoothed_box,
 ellipsoid, confidence, smoothed_confidence.
 
-Segmentation masking is not ported yet, so the masks come from the
-deterministic center-ellipse `FallbackMasker` (the `box` prior needs none).
+The masks come from `core.masking.make_masking_model`: the segmentation
+net when the category's parsing checkpoint exists, else the deterministic
+center-ellipse `FallbackMasker` (the `box` prior needs none).
 """
 
 import math
@@ -37,10 +38,11 @@ class FallbackMasker:
 
 class PriorGenerator:
     """Callable: image (C, H, W) or (1, C, H, W) in [-1, 1] -> depth prior
-    (1, H, W) float32."""
+    (1, H, W) float32.  Without `masking_model`, the masker of
+    `make_masking_model` (its net on `device`)."""
 
     def __init__(self, image_size, category, prior, noise_threshold=0.7,
-                 near=0.91, far=1.02, masking_model=None):
+                 near=0.91, far=1.02, masking_model=None, device=None):
         if not hasattr(self, f"_{prior}_prior"):
             raise NotImplementedError(f"unknown prior: {prior}")
         self.image_size = image_size
@@ -51,7 +53,11 @@ class PriorGenerator:
         self.far = far
         self.base_prior = np.full((1, image_size, image_size), far,
                                   np.float32)
-        self.masking_model = masking_model or FallbackMasker(image_size)
+        if masking_model is None:
+            from gan2shape_torch.core.masking import make_masking_model
+            masking_model = make_masking_model(category, image_size,
+                                               device=device)
+        self.masking_model = masking_model
 
     def __call__(self, image):
         image = np.asarray(image)

@@ -54,8 +54,6 @@ class Trainer:
                  log_wandb=False, save_ckpts=False, load_dict=None, seed=0,
                  device=None):
         self.config = dict(model_config)
-        self.model = GAN2Shape(model_config, device=device)
-        self.device = self.model.device
         self.image_size = model_config.get("image_size", 128)
         self.category = model_config.get("category", "face")
         self.n_proj_samples = model_config.get("n_proj_samples", 8)
@@ -71,19 +69,16 @@ class Trainer:
         self.log_wandb = log_wandb
         self.save_ckpts = save_ckpts
 
-        init = torch.Generator().manual_seed(seed)
-        self.model.init_params(init)
-        self.model.init_frozen(init)
+        self._init_model(device, torch.Generator().manual_seed(seed))
+        self.device = self.model.device
         # step-2 pseudo-sample randomness, drawn on the model's device
         self.sampler = torch.Generator(device=self.device).manual_seed(
             seed + 1)
         self.shuffler = torch.Generator().manual_seed(seed + 2)
         self.prior_generator = PriorGenerator(
             self.image_size, self.category,
-            model_config.get("prior_name", "ellipsoid"))
-        self.optimizers = {
-            s: default_optimizer(self._params(sub), self.learning_rate)
-            for s, sub in STEP_SUBSETS.items()}
+            model_config.get("prior_name", "ellipsoid"), device=self.device)
+        self.optimizers = self._optimizers()
 
         self.ckpt = CheckpointManager(
             model_config.get("our_nets_ckpts",
@@ -96,12 +91,24 @@ class Trainer:
                 time=load_dict.get("time", "*")))
         self.load_dict = load_dict
 
+    def _init_model(self, device, init):
+        """Build the model on `device` and draw its nets from `init`."""
+        self.model = GAN2Shape(self.config, device=device)
+        self.model.init_params(init)
+        self.model.init_frozen(init)
+
+    def _optimizers(self):
+        return {s: default_optimizer(self._params(sub), self.learning_rate)
+                for s, sub in STEP_SUBSETS.items()}
+
     def _params(self, names):
         return [p for n in names for p in self.model.nets[n].parameters()]
 
     def _step(self, loss, optimizer):
+        """One update from the (n,) per-instance losses, summed: each
+        instance's parameters get exactly their own loss's gradient."""
         self.model.zero_grad(set_to_none=True)
-        loss.backward()
+        loss.sum().backward()
         optimizer.step()
 
     def _order(self, n, shuffle):
@@ -167,9 +174,10 @@ class Trainer:
         return losses
 
     def run_stage(self, image, latent, stage):
-        """One stage's steps on one image (batch 1).  A step with 0
+        """One stage's steps on one image (batch 1) per instance.  A step with 0
         iterations still runs once without updates when a later step
-        consumes its collected state.  Returns the three loss lists."""
+        consumes its collected state.  Returns the three lists of
+        per-iteration (n,) loss tensors."""
         l1, l2, l3 = [], [], []
         if stage["step1"] or stage["step2"] or stage["step3"]:
             collected, l1 = self.run_step1(image, stage["step1"])
@@ -178,7 +186,7 @@ class Trainer:
                                             stage["step2"])
         if stage["step3"]:
             l3 = self.run_step3(image, latent, collected2, stage["step3"])
-        return _floats(l1), _floats(l2), _floats(l3)
+        return l1, l2, l3
 
     # ---------------- training loops ----------------
 
@@ -236,7 +244,8 @@ class Trainer:
 
             for stage_i, stage in enumerate(stages):
                 t0 = time.time()
-                l1, l2, l3 = self.run_stage(image, latent, stage)
+                l1, l2, l3 = (_floats(c) for c in
+                              self.run_stage(image, latent, stage))
                 dt = time.time() - t0
                 n_it = len(l1) + len(l2) + len(l3)
                 log.info("image %s stage %d: losses %.4f/%.4f/%.4f "

@@ -33,9 +33,7 @@ from gan2shape_torch.cli import train as t_train
 from gan2shape_torch.convert import reference
 from gan2shape_torch.core import checkpoint as t_ckpt
 from gan2shape_torch.core import dataset as t_dataset
-from gan2shape_torch.core.masking import make_masking_model
 from gan2shape_torch.core.model import GAN2Shape
-from gan2shape_torch.core.priors import FallbackMasker
 from gan2shape_torch.models.stylegan2 import Blur
 from gan2shape_torch.utils import config as t_config
 
@@ -409,23 +407,14 @@ def test_assets_reject_unknown_entries(assets, tmp_path):
 
 # ---------------- refusals ----------------
 
-@pytest.mark.parametrize("category, ckpt", [("face", "bisenet.pth"),
-                                            ("car", "pspnet_voc.pth")])
-def test_masker_refuses_an_unported_parsing_checkpoint(tmp_path, category,
-                                                       ckpt):
-    assert isinstance(make_masking_model(category, 64, str(tmp_path)),
-                      FallbackMasker)
-    (tmp_path / ckpt).write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A5"):
-        make_masking_model(category, 64, str(tmp_path))
-
-
 @pytest.mark.parametrize("argv, env", [
-    (["--n-instances", "2"], {}), (["--distributed"], {}),
+    (["--distributed"], {}),
     ([], {"G2S_COORDINATOR": "localhost:1234"}),
     ([], {"G2S_MULTIHOST": "1"})])
 def test_train_refuses_multi_instance_and_multi_host(tmp_path, monkeypatch,
                                                      argv, env):
+    """Multi-host runs stay refused (ROADMAP A9); `--n-instances` on one
+    device trains (tests/test_torch_instances.py)."""
     monkeypatch.chdir(tmp_path)
     for k, v in env.items():
         monkeypatch.setenv(k, v)

@@ -60,6 +60,8 @@ def test_port_import_loads_no_jax_module():
         "gan2shape_torch.core.dataset, gan2shape_torch.core.diagnostics, "
         "gan2shape_torch.core.masking\n"
         "import gan2shape_torch.utils.config, gan2shape_torch.utils.plotting\n"
+        "import gan2shape_torch.models.segmentation, "
+        "gan2shape_torch.parallel, gan2shape_torch.parallel.sharding\n"
         "sys.argv = ['chip_smoke.py', '--help']\n"
         "try:\n"
         "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
