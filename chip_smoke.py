@@ -53,7 +53,26 @@ Phases, each of which must pass:
      iteration-0 loss against a sequential Trainer's from the same init
      within 1e-5; then timed blocks and profiler windows of each step, the
      instance time it projects and the peak memory;
-  10. one JSON line describing every kernel, the card line again, and last
+  10. the GAN side at the church config's GAN width (256², channel
+     multiplier 2), in a temporary folder: `tools.prepare_data` of 64
+     written 256² PNGs (the native mmap cache built by g++ and held against
+     the plain numpy read), `tools.train_gan` at batch 16 with --augment for
+     iterations 0-4 with a checkpoint at 4 (bit-equal to the live state)
+     and resumed for 5-7, the trained g_ema in a GAN2Shape model of
+     configs/church.yml (its image of a fixed z equal to sample_ema's
+     within 1e-6 without cuDNN, within 1e-5 of its largest value with
+     it), `tools.generate` (2 batches of 4 at truncation 0.7) and
+     `tools.project` (2 images, 50 steps, LPIPS-VGG from written
+     reference-layout files; the perceptual loss must fall), with the
+     launch counts zeroed before and read after (none of the port's
+     kernels lies on this path); then ms per train_step / d_reg_step /
+     g_reg_step with and without the augmentation, images/s, a profiler
+     window, peak memory; the iteration-0 losses and R1 at 256², batch 2,
+     card against CPU within 1e-4 relative (the path penalty within 3e-4:
+     see PATH_TOL), the CPU half after the card's; and LPIPS (VGG,
+     Alex, Squeeze; net-lin and net) and L2 / DSSIM in RGB and Lab, card
+     against CPU within 1e-5 of the largest value;
+  11. one JSON line describing every kernel, the card line again, and last
      {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Kernel builds and run
@@ -1438,6 +1457,507 @@ def run_instances(card, seq_launches, seq_step_ms):
     return launches
 
 
+# ---------------- phase 10: the GAN side ----------------
+
+GAN_SIZE = 256          # configs/church.yml: gan_size 256,
+GAN_CM = 2              # channel_multiplier 2 (train_gan's defaults)
+GAN_BATCH = 16
+GAN_IMAGES = 64
+GAN_TOL = 1e-4          # card against CPU, iteration-0 values, relative
+# the path penalty squares a 196608-term sum of random-sign products: the
+# CPU's own value moves 1.2e-4 between 6 and 8 threads, the card's 1.1e-4
+# between runs
+PATH_TOL = 3e-4
+LPIPS_TOL = 1e-5        # card against CPU, of the largest value
+SAMPLE_TOL = 1e-6       # GAN2Shape's generator against sample_ema
+# the same with cuDNN on, of the image's largest value: cuDNN may pick
+# another algorithm for each of two modules of equal shapes (5.84e-6 of
+# values up to 5.34 apart in one run, 0 in others)
+SAMPLE_CUDNN_TOL = 1e-5
+PROJECT_STEPS = 50
+
+
+def write_pngs(folder, n, size, seed):
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(folder)
+    for i in range(n):
+        Image.fromarray(rng.integers(0, 256, (size, size, 3),
+                                     dtype=np.uint8)).save(
+            os.path.join(folder, f"{i:06d}.png"))
+
+
+def inject(trainer, inputs):
+    """Replace the trainer's draws by `inputs` (numpy), consumed in call
+    order: latents (z1, z2, take2), noise lists, (G, C) transforms and the
+    path-length image."""
+    import torch
+    from gan2shape_torch.models.augment import augment
+
+    dev = trainer.device
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    def mixed(g, batch):
+        z1, z2, take2 = inputs["latents"].pop(0)
+        w1, w2 = g.style_forward(t(z1)), g.style_forward(t(z2))
+        return torch.where(t(take2)[None, :, None], w2[:, None],
+                           w1[:, None])
+
+    trainer._mixed_latent = mixed
+    trainer._fresh_noise = lambda batch: [t(n) for n in
+                                          inputs["noise"].pop(0)]
+    trainer._maybe_augment = lambda img, p: augment(
+        None, img, p, transforms=tuple(map(t, inputs["aug"].pop(0))))[0]
+    trainer._path_noise = lambda shape: t(inputs["path"])
+
+
+def gan_inputs(b, seed):
+    """One step's injected draws for each of train_step, d_reg_step and
+    g_reg_step, at batch `b` and GAN_SIZE."""
+    import numpy as np
+    import torch
+    from gan2shape_torch.models import augment as A
+
+    log_size = int(math.log2(GAN_SIZE))
+    n_latent, num_layers = log_size * 2 - 2, (log_size - 2) * 2 + 1
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+
+    def latent(n):
+        take2 = np.arange(n_latent) >= rng.integers(1, n_latent)
+        return (rng.standard_normal((n, 512)).astype(np.float32),
+                rng.standard_normal((n, 512)).astype(np.float32), take2)
+
+    def noise(n):
+        return [rng.standard_normal((n, 1, 2 ** ((i + 5) // 2),
+                                     2 ** ((i + 5) // 2))).astype(np.float32)
+                for i in range(num_layers)]
+
+    def aug():
+        G = torch.linalg.inv(A.sample_affine(gen, 0.6, b, GAN_SIZE,
+                                             GAN_SIZE))
+        return G.numpy(), A.sample_color(gen, 0.6, b).numpy()
+
+    return {"train": {"latents": [latent(b), latent(b)],
+                      "noise": [noise(b), noise(b)],
+                      "aug": [aug(), aug(), aug()]},
+            "d_reg": {"aug": [aug()]},
+            "g_reg": {"latents": [latent(1)], "noise": [noise(1)],
+                      "path": rng.standard_normal(
+                          (1, 3, GAN_SIZE, GAN_SIZE)).astype(np.float32)}}
+
+
+def iteration0_values(device, real, inputs):
+    """train_step's D and G losses, R1 and the path penalty, each from the
+    seeded init at GAN_SIZE with `inputs` injected, on `device`."""
+    import copy
+
+    import torch
+    from gan2shape_torch.models.stylegan2_train import StyleGAN2Trainer
+
+    trainer = StyleGAN2Trainer(GAN_SIZE, channel_multiplier=GAN_CM,
+                               use_augment=True, seed=0, device=device)
+    init = copy.deepcopy(trainer.state_dict())
+    real = torch.as_tensor(real, device=trainer.device)
+    out = {}
+    for step in ("train", "d_reg", "g_reg"):
+        for name in ("g", "d", "g_ema"):
+            getattr(trainer, {"g": "generator", "d": "discriminator",
+                              "g_ema": "g_ema"}[name]).load_state_dict(
+                init[name])
+        trainer.g_optim.load_state_dict(init["g_optim"])
+        trainer.d_optim.load_state_dict(init["d_optim"])
+        trainer.mean_path_length = init["mean_path_length"].clone()
+        inject(trainer, copy.deepcopy(inputs[step]))
+        if step == "train":
+            m = trainer.train_step(real, 0.6)
+            out["d_loss"], out["g_loss"] = float(m["d_loss"]), \
+                float(m["g_loss"])
+        elif step == "d_reg":
+            out["r1"] = float(trainer.d_reg_step(real, 0.6))
+        else:
+            out["path"] = float(trainer.g_reg_step()["path_loss"])
+    return out
+
+
+def gan_card_against_cpu(card):
+    """Iteration 0 from the same weights and injected draws, batch 2 at
+    GAN_SIZE, on the card and then on the CPU."""
+    import numpy as np
+
+    real = np.random.default_rng(12).uniform(
+        -1, 1, (2, 3, GAN_SIZE, GAN_SIZE)).astype(np.float32)
+    inputs = gan_inputs(2, seed=11)
+    t0 = time.perf_counter()
+    cuda = iteration0_values("cuda", real, inputs)
+    t1 = time.perf_counter()
+    cpu = iteration0_values("cpu", real, inputs)
+    rel = {k: abs(cuda[k] - cpu[k]) / abs(cpu[k]) for k in cpu}
+    tol = {k: PATH_TOL if k == "path" else GAN_TOL for k in cpu}
+    check(all(rel[k] <= tol[k] for k in cpu)
+          and all(math.isfinite(v) and v != 0 for v in cpu.values()),
+          f"GAN iteration 0 at {GAN_SIZE}^2, channel_multiplier {GAN_CM}, "
+          f"batch 2, injected inputs, card against CPU (TF32 off): "
+          + ", ".join(f"{k} {cuda[k]:.6g} vs {cpu[k]:.6g} ({rel[k]:.1e} "
+                      f"<= {tol[k]})" for k in cpu) + " relative")
+    print(f"TIME GAN card-against-CPU check: {t1 - t0:.2f} s wall on the "
+          f"card, {time.perf_counter() - t1:.2f} s on the CPU ({card})",
+          flush=True)
+
+
+def gan_timing(trainer, real, card):
+    """Device time of each step after warm-up by CUDA events, with and
+    without the augmentation; a profiler window over one iteration of each;
+    images/s of the lazy schedule; peak memory."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def per_call(fn, reps):
+        fn()  # warm-up
+        return cuda_ms(fn, reps=reps, warmup=0)
+
+    torch.cuda.reset_peak_memory_stats()
+    times = {}
+    for aug in (True, False):
+        trainer.use_augment = aug
+        tag = "" if aug else " (no augmentation)"
+        times["train_step" + tag] = per_call(
+            lambda: trainer.train_step(real, 0.6), 3)
+        times["d_reg_step" + tag] = per_call(
+            lambda: trainer.d_reg_step(real, 0.6), 2)
+    trainer.use_augment = True
+    times["g_reg_step"] = per_call(trainer.g_reg_step, 3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for name, ms in times.items():
+        print(f"TIME GAN {name}: {ms:.2f} ms per call by CUDA events at "
+              f"{GAN_SIZE}^2, channel_multiplier {GAN_CM}, batch "
+              f"{real.shape[0]} ({card})", flush=True)
+    it_ms = (times["train_step"] + times["d_reg_step"] / trainer.d_reg_every
+             + times["g_reg_step"] / trainer.g_reg_every)
+    share = 1 - ((times["train_step (no augmentation)"]
+                  + times["d_reg_step (no augmentation)"]
+                  / trainer.d_reg_every
+                  + times["g_reg_step"] / trainer.g_reg_every) / it_ms)
+    print(f"IMAGES/S GAN {real.shape[0] * 1e3 / it_ms:.2f} (one iteration "
+          f"{it_ms:.2f} ms: train_step + d_reg_step / "
+          f"{trainer.d_reg_every} + g_reg_step / {trainer.g_reg_every}); "
+          f"the augmentation {share:.1%} of it; peak memory {peak:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated); {card}", flush=True)
+
+    def one_of_each():
+        trainer.train_step(real, 0.6)
+        trainer.d_reg_step(real, 0.6)
+        trainer.g_reg_step()
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        one_of_each()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = device_events(prof)
+    busy_ms = busy_union_us(events) / 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    total = sum(by_name.values())
+    print(f"PROFILE gan (one train_step + d_reg_step + g_reg_step): device "
+          f"busy {busy_ms:.2f} ms of {wall_ms:.2f} ms profiled wall = "
+          f"{busy_ms / wall_ms:.1%}; {len(events)} device activities; the "
+          f"activities' own times sum to {total / 1e3:.2f} ms", flush=True)
+    for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        print(f"  {v / total:6.1%} {v / 1e3:9.3f} ms {k[:110]}", flush=True)
+    return times, peak
+
+
+def gan_lpips_checks(card):
+    """LPIPS (VGG, Alex, Squeeze) in net-lin and net modes and the L2 /
+    DSSIM distances in RGB and Lab at 1x3x256^2, card against CPU."""
+    import numpy as np
+    import torch
+    from gan2shape_torch.models.layers import reset_parameters
+    from gan2shape_torch.models.lpips import LPIPS, perceptual_distance
+
+    rng = np.random.default_rng(13)
+    a, b = (rng.uniform(-1, 1, (1, 3, 256, 256)).astype(np.float32)
+            for _ in range(2))
+    times = {}
+    ta, tb = (torch.as_tensor(x, device="cuda") for x in (a, b))
+    for backbone in ("vgg", "alex", "squeeze"):
+        full = LPIPS(backbone=backbone)
+        reset_parameters(full, torch.Generator().manual_seed(14))
+        for model in ("net-lin", "net"):
+            net = LPIPS(backbone=backbone, lpips_heads=model == "net-lin")
+            net.load_state_dict({k: v for k, v in full.state_dict().items()
+                                 if k in net.state_dict()})
+            gpu = LPIPS(backbone=backbone,
+                        lpips_heads=model == "net-lin").cuda()
+            gpu.load_state_dict(net.state_dict())
+            with torch.no_grad():
+                got = perceptual_distance(gpu, ta, tb, model=model).cpu()
+                want = perceptual_distance(net, torch.as_tensor(a),
+                                           torch.as_tensor(b), model=model)
+            err = float((got - want).abs().max() / want.abs().max())
+            check(err <= LPIPS_TOL, f"LPIPS {backbone} {model} at "
+                  f"1x3x256^2, card against CPU: {err:.2e} of the largest "
+                  f"value (<= {LPIPS_TOL})")
+            if model == "net-lin":
+                with torch.no_grad():
+                    times[backbone] = cuda_ms(lambda: gpu(ta, tb), reps=10)
+    for model in ("L2", "DSSIM"):
+        for space in ("RGB", "Lab"):
+            got = perceptual_distance(
+                None, torch.as_tensor(a, device="cuda"),
+                torch.as_tensor(b, device="cuda"), model=model,
+                colorspace=space).cpu()
+            want = perceptual_distance(None, torch.as_tensor(a),
+                                       torch.as_tensor(b), model=model,
+                                       colorspace=space)
+            err = float((got - want).abs().max() / want.abs().max())
+            check(err <= LPIPS_TOL, f"{model} in {space} at 1x3x256^2, "
+                  f"card against CPU: {err:.2e} of the largest value "
+                  f"(<= {LPIPS_TOL})")
+    for backbone, ms in times.items():
+        print(f"TIME LPIPS {backbone} net-lin at 1x3x256^2 (two images "
+              f"through the trunk): {ms:.3f} ms per call by CUDA events "
+              f"({card})", flush=True)
+    return times
+
+
+def run_gan_side(card):
+    """The GAN side's user path on the card (prepare_data -> train_gan, 8
+    iterations with a checkpoint and a resume -> the GAN2Shape model on the
+    trained g_ema -> generate -> project, then the step times), the card
+    against the CPU, and LPIPS.  Returns the numbers the run printed."""
+    from pathlib import Path
+
+    from gan2shape_torch import native
+
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    lib = native.build()
+    print(f"BUILD native cache {lib.name} in {time.perf_counter() - t0:.2f} "
+          f"s (g++)", flush=True)
+    launched = gan_on_the_card(root, card)
+    gan_card_against_cpu(card)
+    lpips_ms = gan_lpips_checks(card)
+    print(f"TIME GAN side phase: {time.perf_counter() - t_phase:.2f} s wall "
+          f"({card})", flush=True)
+    return {**launched, "lpips_ms": lpips_ms}
+
+
+def gan_on_the_card(root, card):
+    """The GAN side's user path on the card, in a temporary folder, then
+    the step times."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from gan2shape_torch import native
+    from gan2shape_torch import projector as P
+    from gan2shape_torch.convert.reference import load_gan_checkpoint
+    from gan2shape_torch.core.dataset import MultiResolutionDataset
+    from gan2shape_torch.core.model import GAN2Shape
+    from gan2shape_torch.models.layers import reset_parameters
+    from gan2shape_torch.models.lpips import LPIPS
+    from gan2shape_torch.models.stylegan2_train import StyleGAN2Trainer
+    from gan2shape_torch.ops import _cuda
+    from gan2shape_torch.tools import generate, prepare_data, project, \
+        train_gan
+    from gan2shape_torch.utils.config import load_config
+
+    _cuda.reset_launches()
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            write_pngs(os.path.join(tmp, "images"), GAN_IMAGES, GAN_SIZE,
+                       seed=10)
+            t0 = time.perf_counter()
+            sizes = (GAN_SIZE // 2, GAN_SIZE)
+            # with its worker pool, in this process, which holds torch's
+            # threads and a CUDA context
+            prepare_data.main(["--out", "data", "--size",
+                               ",".join(map(str, sizes)), "--n_worker", "8",
+                               "images"])
+            ds = MultiResolutionDataset("data", resolution=GAN_SIZE)
+            got = ds.get_batch([0, 63, 5], [False, True, False]).numpy()
+            want = native.read_records_plain(
+                os.path.join("data", f"{GAN_SIZE}.bin"), GAN_IMAGES,
+                (3, GAN_SIZE, GAN_SIZE), [0, 63, 5])
+            want[1] = want[1][..., ::-1]
+            check(len(ds) == GAN_IMAGES and np.array_equal(got, want)
+                  and sorted(os.listdir("data")) == sorted(
+                      [f"{n}.bin" for n in sizes] + ["meta.json"]),
+                  f"prepare_data of {GAN_IMAGES} {GAN_SIZE}^2 PNGs at sizes "
+                  f"{sizes} in {time.perf_counter() - t0:.2f} s; the "
+                  f"native mmap cache's batch equal to the plain numpy "
+                  f"read (flips included)")
+
+            base = ["data", "--size", str(GAN_SIZE), "--channel_multiplier",
+                    str(GAN_CM), "--batch", str(GAN_BATCH), "--augment",
+                    "--d_reg_every", "16", "--g_reg_every", "4",
+                    "--n_sample", "16", "--out_dir", "run"]
+            t0 = time.perf_counter()
+            trainer, log = train_gan.run(train_gan.parse_args(
+                base + ["--iter", "5", "--ckpt_every", "4"]))
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            ckpt = os.path.join("run", "checkpoint", "000004.pt")
+            saved = torch.load(ckpt, map_location="cpu", weights_only=False)
+            live = trainer.state_dict()
+            same = all(torch.equal(saved[k][n], v.cpu())
+                       for k in ("g", "d", "g_ema")
+                       for n, v in live[k].items())
+            same &= all(torch.equal(saved[k]["state"][i][n], v.cpu())
+                        for k in ("g_optim", "d_optim")
+                        for i, st in live[k]["state"].items()
+                        for n, v in st.items())
+            same &= torch.equal(saved["mean_path_length"],
+                                live["mean_path_length"].cpu())
+            t0 = time.perf_counter()
+            resumed, log2 = train_gan.run(train_gan.parse_args(
+                base + ["--iter", "8", "--ckpt", ckpt]))
+            torch.cuda.synchronize()
+            resume_s = time.perf_counter() - t0
+            log = log + log2
+            vals = [x for r in log for x in (r["d"], r["g"], r["r1"],
+                                            r["path"])]
+            check([r["iter"] for r in log] == list(range(8))
+                  and all_finite(vals) and log[0]["r1"] > 0
+                  and log[0]["path"] > 0 and log[4]["path"] > 0 and same,
+                  f"train_gan at {GAN_SIZE}^2, channel_multiplier {GAN_CM},"
+                  f" batch {GAN_BATCH}, --augment: iterations 0-4 in "
+                  f"{first_s:.2f} s, the checkpoint at 4 bit-equal to the "
+                  f"live state, resumed 5-7 in {resume_s:.2f} s; losses "
+                  f"finite, R1 at 0 ({log[0]['r1']:.4g}), path length at 0 "
+                  f"and 4 ({log[0]['path']:.4g}, {log[4]['path']:.4g})")
+
+            config = load_config(category="church",
+                                 config_dir=str(root / "configs"),
+                                 minimal_config=str(root /
+                                                    "minimal_config.yml"))
+            check(config["gan_size"] == GAN_SIZE
+                  and config["channel_multiplier"] == GAN_CM,
+                  f"church config from load_config: gan_size "
+                  f"{config['gan_size']}, channel_multiplier "
+                  f"{config['channel_multiplier']}")
+            model = GAN2Shape(config)
+            load_gan_checkpoint(model, ckpt)
+            reader = StyleGAN2Trainer(GAN_SIZE, channel_multiplier=GAN_CM)
+            reader.load_checkpoint(ckpt)
+            weights = all(torch.equal(v, reader.g_ema.state_dict()[k])
+                          for k, v in model.generator.state_dict().items())
+            z = torch.as_tensor(np.random.default_rng(15).standard_normal(
+                (1, 512)).astype(np.float32), device="cuda")
+            zero = [torch.zeros_like(n) for n in model.generator.noise_list()]
+            gaps = {}
+            # cuDNN may pick other algorithms for two modules of equal
+            # shapes (its plan cache keys on pointer alignment); without it
+            # the two forwards are the same arithmetic
+            for label, enabled in (("without cuDNN", False),
+                                   ("with cuDNN", True)):
+                with torch.no_grad(), torch.backends.cudnn.flags(
+                        enabled=enabled):
+                    img, _ = model.generator([z], zero)
+                    want = reader.sample_ema(z)
+                gaps[label] = float((img - want).abs().max())
+            top = float(want.abs().max())
+            check(weights and gaps["without cuDNN"] <= SAMPLE_TOL
+                  and gaps["with cuDNN"] <= SAMPLE_CUDNN_TOL * top,
+                  f"GAN2Shape (configs/church.yml) with the trained g_ema "
+                  f"from load_gan_checkpoint: weights bit-equal, the image "
+                  f"of a fixed z with zero noise {gaps['without cuDNN']:.2e} "
+                  f"from sample_ema's without cuDNN (<= {SAMPLE_TOL}), "
+                  f"{gaps['with cuDNN']:.2e} with it, of values up to "
+                  f"{top:.3g} (<= {SAMPLE_CUDNN_TOL} of that)")
+            del reader, model
+
+            t0 = time.perf_counter()
+            n = generate.run(generate.parse_args([
+                "--ckpt", ckpt, "--size", str(GAN_SIZE),
+                "--channel_multiplier", str(GAN_CM), "--sample", "4",
+                "--pics", "2", "--truncation", "0.7", "--save_path",
+                "samples"]))
+            lats = [np.load(os.path.join("samples", "latents",
+                                         f"{i:06d}.npy")) for i in range(n)]
+            check(n == 8 and all(x.shape == (512,) and np.isfinite(x).all()
+                                 for x in lats),
+                  f"generate: 2 batches of 4 at truncation 0.7 in "
+                  f"{time.perf_counter() - t0:.2f} s, latents finite")
+
+            # random LPIPS-VGG weights in the reference files' layout
+            os.makedirs("lpips")
+            net = LPIPS()
+            reset_parameters(net, torch.Generator().manual_seed(16))
+            sd = net.state_dict()
+            torch.save({k[4:]: v for k, v in sd.items()
+                        if k.startswith("vgg.")},
+                       os.path.join("lpips", "vgg16.pth"))
+            heads = torch.Generator().manual_seed(17)
+            torch.save({k: torch.rand(v.shape, generator=heads)
+                        for k, v in sd.items() if k.startswith("lin")},
+                       os.path.join("lpips", "vgg.pth"))
+            files = [os.path.join("samples", "000000.png"),
+                     os.path.join("samples", "000005.png")]
+            steps_ms = []
+
+            def timed_step(real):
+                def step(self, *a, **kw):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    out = real(self, *a, **kw)
+                    torch.cuda.synchronize()
+                    steps_ms.append((time.perf_counter() - t) * 1e3)
+                    return out
+                return step
+
+            t0 = time.perf_counter()
+            with patched(P.Projector, "step", timed_step):
+                result = project.run(project.parse_args([
+                    "--ckpt", ckpt, "--size", str(GAN_SIZE),
+                    "--channel_multiplier", str(GAN_CM), "--step",
+                    str(PROJECT_STEPS), "--vgg_ckpt",
+                    os.path.join("lpips", "vgg16.pth"), "--lpips_ckpt",
+                    os.path.join("lpips", "vgg.pth"), *files]))
+            project_s = time.perf_counter() - t0
+            losses = result["losses"]
+            first, last = losses[0]["perceptual"], losses[-1]["perceptual"]
+            step_ms = float(np.median(steps_ms[2:]))
+            check(len(steps_ms) == PROJECT_STEPS and last < first
+                  and os.path.exists("000000-project.png")
+                  and os.path.exists(os.path.join("samples", "latents",
+                                                  "000000.png.npy")),
+                  f"project: 2 images at {GAN_SIZE}^2 with LPIPS-VGG "
+                  f"net-lin from reference-layout files, {PROJECT_STEPS} "
+                  f"steps in {project_s:.2f} s; perceptual loss "
+                  f"{first:.4f} -> {last:.4f}")
+            print(f"TIME project step: {step_ms:.2f} ms per step (median "
+                  f"after 2, host clock around a synchronised step; 2 images"
+                  f" at {GAN_SIZE}^2, LPIPS-VGG) ({card})", flush=True)
+
+            real = ds.get_batch(np.arange(GAN_BATCH)).cuda()
+            times, peak = gan_timing(resumed, real, card)
+            del trainer, resumed
+        finally:
+            os.chdir(here)
+    launched = dict(_cuda.LAUNCHES)
+    check(all(v == 0 for v in launched.values()),
+          f"the GAN side launched none of the port's kernels (none lies on "
+          f"it): {launched}")
+    return {"steps_ms": times, "peak_gib": peak, "project_step_ms": step_ms,
+            "launches": launched}
+
+
 def main(argv):
     import torch
 
@@ -1479,6 +1999,7 @@ def main(argv):
             gen_launches = run_entry_points(card)
             run_masker(card)
             inst_launches = run_instances(card, launches, step_ms)
+            gan = run_gan_side(card)
     except Failed:
         return 1
     except RuntimeError as exc:  # a timing that found no device activity
@@ -1505,6 +2026,7 @@ def main(argv):
             n = launches[name]
             extra["launches_generalizing_step1"] = gen_launches[name]
             extra[f"launches_{N_INSTANCES}_instances"] = inst_launches[name]
+            extra["launches_gan_side"] = gan["launches"][name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         **results[name], **extra})

@@ -132,20 +132,84 @@ def offset_encoder_state_dict(params):
 
 
 _VGG16_FEATURE_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_ALEX_FEATURE_IDX = (0, 3, 6, 8, 10)
+# torchvision SqueezeNet 1.1 fire-module indices of JAX's fire2 .. fire9
+_SQUEEZE_FIRE_IDX = (3, 4, 6, 7, 9, 10, 11, 12)
+
+
+def _conv_wb(q):
+    return _t(q["weight"]), _t(q["bias"])
+
+
+def vgg16_state_dict(trunk):
+    """VGG16Features params -> torchvision `features.*`."""
+    sd = {}
+    for i, idx in enumerate(_VGG16_FEATURE_IDX):
+        sd[f"features.{idx}.weight"], sd[f"features.{idx}.bias"] = \
+            _conv_wb(trunk[f"conv{i}"])
+    return sd
+
+
+def alexnet_state_dict(trunk):
+    """AlexFeatures params -> torchvision `features.*`."""
+    sd = {}
+    for i, idx in enumerate(_ALEX_FEATURE_IDX):
+        sd[f"features.{idx}.weight"], sd[f"features.{idx}.bias"] = \
+            _conv_wb(trunk[f"conv{i}"])
+    return sd
+
+
+def squeezenet_state_dict(trunk):
+    """SqueezeFeatures params -> torchvision SqueezeNet 1.1 `features.*`."""
+    sd = {}
+    sd["features.0.weight"], sd["features.0.bias"] = _conv_wb(trunk["conv0"])
+    for fire, idx in enumerate(_SQUEEZE_FIRE_IDX, start=2):
+        for ours, theirs in (("squeeze", "squeeze"),
+                             ("expand1", "expand1x1"),
+                             ("expand3", "expand3x3")):
+            w, b = _conv_wb(trunk[f"fire{fire}_{ours}"])
+            sd[f"features.{idx}.{theirs}.weight"] = w
+            sd[f"features.{idx}.{theirs}.bias"] = b
+    return sd
+
+
+TRUNK_STATE_DICTS = {"vgg": vgg16_state_dict, "alex": alexnet_state_dict,
+                     "squeeze": squeezenet_state_dict}
 
 
 def lpips_state_dict(lpips_params):
-    """LPIPS-VGG params -> LPIPS state_dict (`vgg.features.*`, `lin{k}`)."""
+    """LPIPS params of any backbone -> LPIPS state_dict
+    (`{backbone}.features.*`, and `lin{k}` when the params hold heads)."""
     p = _params(lpips_params)
-    sd = {}
-    for i, idx in enumerate(_VGG16_FEATURE_IDX):
-        sd[f"vgg.features.{idx}.weight"] = _t(p["vgg"][f"conv{i}"]["weight"])
-        sd[f"vgg.features.{idx}.bias"] = _t(p["vgg"][f"conv{i}"]["bias"])
+    backbone, = (b for b in TRUNK_STATE_DICTS if b in p)
+    sd = {f"{backbone}.{k}": v
+          for k, v in TRUNK_STATE_DICTS[backbone](p[backbone]).items()}
     k = 0
     while f"lin{k}" in p:
         sd[f"lin{k}.model.1.weight"] = _t(p[f"lin{k}"]["weight"])
         k += 1
     return sd
+
+
+def _field(state, name):
+    return state[name] if isinstance(state, dict) else getattr(state, name)
+
+
+def gan_state_dicts(state, noise=None):
+    """A JAX `GANTrainState` (or a dict with its fields) -> the port's
+    {"g", "d", "g_ema"} state_dicts.  The JAX state holds no noise maps:
+    `noise` (a list per layer) fills the generators' noise buffers, zeros
+    when None."""
+    g_params = _params(_field(state, "g_params"))
+    n_mlp = sum(k.startswith("style_") for k in g_params)
+    if noise is None:
+        n_convs = sum(k.startswith("convs_") for k in g_params)
+        noise = [np.zeros((1, 1, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2)),
+                          np.float32) for i in range(n_convs + 1)]
+    return {"g": generator_state_dict(g_params, noise, n_mlp),
+            "d": discriminator_state_dict(_field(state, "d_params")),
+            "g_ema": generator_state_dict(_field(state, "g_ema"), noise,
+                                          n_mlp)}
 
 
 NET_STATE_DICTS = {

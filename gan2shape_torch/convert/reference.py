@@ -4,8 +4,9 @@ The port's modules keep the reference's torch state_dict names, so loading
 is `load_state_dict`:
   - the StyleGAN2 checkpoint ({"g_ema", "d", ...}): `g_ema` (its noise
     buffers included) into the generator, `d` into the discriminator;
-  - torchvision's `vgg16.pth` (`features.*`) and the lpips v0.1 `vgg.pth`
-    heads (`lin{k}.model.1.weight`) into LPIPS;
+  - a torchvision backbone file (`features.*`: `vgg16.pth`, `alexnet.pth`
+    or `squeezenet1_1.pth`, as the config's `lpips_net` asks) and the lpips
+    v0.1 heads of the same backbone (`lin{k}.model.1.weight`) into LPIPS;
   - the view / light MVN files ({"mean", "cov"}) into the model's sampler.
 The reference registers its FIR blur and upsample kernels as state
 (`*.kernel`); the port builds them as constants, so those entries are
@@ -55,13 +56,26 @@ def load_gan_checkpoint(model, filename):
                               f"{filename} d")
 
 
-def load_lpips(model, vgg_path, lpips_path):
-    """torchvision VGG16 `features.*` plus the lpips linear heads."""
-    vgg = load_torch_file(vgg_path)
-    heads = load_torch_file(lpips_path)
-    sd = {f"vgg.{k}": v for k, v in vgg.items() if k.startswith("features.")}
-    sd.update(heads)
-    load_reference_state_dict(model.lpips, sd, f"{vgg_path} + {lpips_path}")
+# where the backbone files lie by default, and the config key that moves them
+LPIPS_TRUNK_FILES = {"vgg": ("vgg_ckpt_path", "checkpoints/vgg/vgg16.pth"),
+                     "alex": ("alex_ckpt_path",
+                              "checkpoints/alex/alexnet.pth"),
+                     "squeeze": ("squeeze_ckpt_path",
+                                 "checkpoints/squeeze/squeezenet1_1.pth")}
+
+
+def load_lpips(model, trunk_path, lpips_path):
+    """The torchvision file of the module's backbone (its `features.*`) plus
+    the lpips linear heads into `model.lpips` (or into `model` itself when
+    it is an LPIPS module); a module without heads (the `net` mode) reads
+    no heads file."""
+    lpips = getattr(model, "lpips", model)
+    trunk = load_torch_file(trunk_path)
+    sd = {f"{lpips.backbone}.{k}": v for k, v in trunk.items()
+          if k.startswith("features.")}
+    if lpips.lpips_heads:
+        sd.update(load_torch_file(lpips_path))
+    load_reference_state_dict(lpips, sd, f"{trunk_path} + {lpips_path}")
 
 
 def load_mvn(filename):
@@ -88,11 +102,14 @@ def build_frozen_assets(model, config):
         log.info("loaded GAN checkpoint %s", gan_ckpt)
         if model.truncation < 1:
             model.set_mean_latent()  # init_frozen's came from random weights
-    vgg = _existing(config.get("vgg_ckpt_path", "checkpoints/vgg/vgg16.pth"))
-    lp = _existing(config.get("lpips_ckpt_path", "checkpoints/lpips/vgg.pth"))
-    if vgg and lp:
-        load_lpips(model, vgg, lp)
-        log.info("loaded LPIPS weights")
+    backbone = model.lpips.backbone
+    key, default = LPIPS_TRUNK_FILES[backbone]
+    trunk = _existing(config.get(key, default))
+    lp = _existing(config.get("lpips_ckpt_path",
+                              f"checkpoints/lpips/{backbone}.pth"))
+    if trunk and lp:
+        load_lpips(model, trunk, lp)
+        log.info("loaded LPIPS-%s weights", backbone)
     vm = _existing(config.get("view_mvn_path"))
     lm = _existing(config.get("light_mvn_path"))
     if vm and lm:

@@ -8,8 +8,13 @@ which wins when both exist.  Images are decoded by PIL, resized bilinearly to
 
 Items are numpy arrays (image (3, H, W) float32, latent (512,) float32);
 the trainer moves them to its device.
+
+`MultiResolutionDataset` is the StyleGAN2 trainer's data: the record files
+that `gan2shape_torch.tools.prepare_data` writes, read through the native
+mmap cache (gan2shape_torch/native).
 """
 
+import json
 from os import path
 
 import numpy as np
@@ -104,3 +109,43 @@ class ImageLatentDataset:
 
     def __getitem__(self, index):
         return (self.image_dataset[index], self.latent_dataset[index], index)
+
+
+class MultiResolutionDataset:
+    """A prepared folder: `meta.json` ({"length", "sizes", "layout"}) and one
+    flat uint8 CHW record file `{res}.bin` per resolution.  Batches are CPU
+    float32 tensors in [-1, 1]."""
+
+    def __init__(self, root, resolution=256):
+        from gan2shape_torch.native import TensorCache
+
+        try:
+            with open(path.join(root, "meta.json")) as f:
+                meta = json.load(f)
+        except FileNotFoundError as e:
+            raise FileNotFoundError(
+                f"{e}\nRun gan2shape_torch.tools.prepare_data to build the "
+                f"cache") from e
+        if resolution not in meta["sizes"]:
+            raise ValueError(f"resolution {resolution} not in prepared "
+                             f"sizes {meta['sizes']}")
+        self.resolution = resolution
+        self.length = int(meta["length"])
+        self.cache = TensorCache(path.join(root, f"{resolution}.bin"),
+                                 self.length, (3, resolution, resolution),
+                                 "uint8")
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, index):
+        return self.get_batch([index])[0]
+
+    def get_batch(self, indices, flip=None):
+        """Records `indices`; `flip` is an optional boolean mask of samples
+        to mirror horizontally (the reference's RandomHorizontalFlip)."""
+        batch = self.cache.get_batch(indices)
+        if flip is not None:
+            flip = np.asarray(flip, bool)
+            batch[flip] = batch[flip][..., ::-1]
+        return torch.from_numpy(batch)

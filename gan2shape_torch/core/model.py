@@ -115,8 +115,6 @@ class GAN2Shape(nn.Module):
         self.truncation = config.get("truncation", 1)
         self.F1_d = config.get("F1_d", 2)
         self.disc_ftr_num = config.get("disc_ftr_num", 4)
-        if config.get("lpips_net", "vgg") != "vgg":
-            raise NotImplementedError("only the LPIPS VGG backbone is ported")
 
         s = self.image_size
         self.nets = nn.ModuleDict({
@@ -131,7 +129,9 @@ class GAN2Shape(nn.Module):
                                    channel_multiplier=self.channel_multiplier)
         self.discriminator = Discriminator(
             self.gan_size, channel_multiplier=self.channel_multiplier)
-        self.lpips = LPIPS()
+        # the perceptual backbone: 'vgg' (the reference's), 'alex' or
+        # 'squeeze'
+        self.lpips = LPIPS(backbone=config.get("lpips_net", "vgg"))
         for m in (self.generator, self.discriminator, self.lpips):
             m.requires_grad_(False)
         self.mean_latent = None

@@ -3,6 +3,13 @@ keep every `down`-th sample; as direct FIR convolution in plain torch, the
 form of StyleGAN2's native upfirdn2d.
 
 Output size per axis: (in * up + pad0 + pad1 - k) // down + 1.
+
+The filter is a pair of autograd Functions, a valid convolution of
+single-channel planes and its adjoint, each the other's backward, so every
+order of derivative is again an FIR filter.  Through `F.conv2d` alone, the
+second derivative (R1's, in the StyleGAN2 trainer) also computes the
+constant kernel's gradient: a convolution with the whole image as its
+kernel, which took 97% of an R1 step's 20.5 s on an H100 (PERF.md, PR 7).
 """
 
 import numpy as np
@@ -19,6 +26,34 @@ def setup_filter(k, gain=1.0):
         k = k / k.sum()
         return (np.outer(k, k) * gain).astype(np.float32)
     return (k / k.sum() * gain).astype(np.float32)
+
+
+class _FIR(torch.autograd.Function):
+    """conv2d of (N, 1, H, W) planes with a constant (1, 1, kh, kw) kernel."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        return F.conv2d(x, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        w, = ctx.saved_tensors
+        return _FIRAdjoint.apply(grad, w), None
+
+
+class _FIRAdjoint(torch.autograd.Function):
+    """The adjoint of `_FIR`: a full transposed convolution."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(w)
+        return F.conv_transpose2d(x, w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        w, = ctx.saved_tensors
+        return _FIR.apply(grad, w), None
 
 
 def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
@@ -40,7 +75,7 @@ def upfirdn2d(x, kernel, up=1, down=1, pad=(0, 0)):
     out = out[:, :, max(-pad_y0, 0):out.shape[2] - max(-pad_y1, 0),
               max(-pad_x0, 0):out.shape[3] - max(-pad_x1, 0)]
     wgt = torch.flip(kernel, (0, 1)).reshape(1, 1, kh, kw).to(out)
-    out = F.conv2d(out, wgt)
+    out = _FIR.apply(out, wgt.detach())
     out = out[:, :, ::down_y, ::down_x]
     return out.reshape(n, c, out.shape[2], out.shape[3])
 

@@ -1,5 +1,6 @@
 """Guards of the port's boundaries: gan2shape_torch and chip_smoke.py import
-neither JAX nor the JAX package (an AST scan and a clean subprocess import);
+neither JAX, the JAX package nor the root `tools` scripts (which import JAX)
+(an AST scan and a clean subprocess import);
 the entry points refuse to fall back to the CPU; CPU tensors never reach a
 kernel launch."""
 
@@ -14,7 +15,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gan2shape_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "gan2shape_tpu", "tools")
 
 
 def _port_sources():
@@ -62,6 +63,12 @@ def test_port_import_loads_no_jax_module():
         "import gan2shape_torch.utils.config, gan2shape_torch.utils.plotting\n"
         "import gan2shape_torch.models.segmentation, "
         "gan2shape_torch.parallel, gan2shape_torch.parallel.sharding\n"
+        "import gan2shape_torch.native, gan2shape_torch.projector, "
+        "gan2shape_torch.models.augment, "
+        "gan2shape_torch.models.stylegan2_train\n"
+        "import gan2shape_torch.tools.prepare_data, "
+        "gan2shape_torch.tools.train_gan, gan2shape_torch.tools.generate, "
+        "gan2shape_torch.tools.project\n"
         "sys.argv = ['chip_smoke.py', '--help']\n"
         "try:\n"
         "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
@@ -116,6 +123,30 @@ def test_cli_entry_points_refuse_missing_cuda(monkeypatch, tmp_path, cli):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         module.main(["--category", "face"])
     assert not (tmp_path / "results").exists()
+
+
+@pytest.mark.parametrize("tool,argv", [
+    ("train_gan", ["data/none"]),
+    ("generate", ["--ckpt", "none.pt"]),
+    ("project", ["--ckpt", "none.pt", "none.png"]),
+])
+def test_gan_tools_refuse_missing_cuda(monkeypatch, tmp_path, tool, argv):
+    """The GAN tools and the trainer ask for CUDA unless told otherwise, and
+    stop before reading any file when there is none."""
+    import importlib
+
+    from gan2shape_torch.models.stylegan2_train import StyleGAN2Trainer
+
+    module = importlib.import_module(f"gan2shape_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.chdir(tmp_path)
+    args = module.parse_args(argv)
+    assert args.device is None
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        module.run(args)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StyleGAN2Trainer(16, style_dim=32, n_mlp=1, channel_multiplier=1)
+    assert not os.listdir(tmp_path)
 
 
 @pytest.mark.cuda
