@@ -72,7 +72,21 @@ Phases, each of which must pass:
      see PATH_TOL), the CPU half after the card's; and LPIPS (VGG,
      Alex, Squeeze; net-lin and net) and L2 / DSSIM in RGB and Lab, card
      against CPU within 1e-5 of the largest value;
-  11. one JSON line describing every kernel, the card line again, and last
+  11. the precision policy (gan2shape_torch/utils/precision.py; phases 1-10
+     run at 'highest' / 'float32', set at the start): under 'high' and
+     'default' the TF32 flags read back after a Renderer is built, and a
+     4096² matmul and a 3x3 256-channel conv at 128² differ from 'highest'
+     and run faster; at B=16, 128², grid mode, warp_canon_depth, its depth
+     gradient, the raster keys, the resize and the view/light samples are
+     bit-equal to 'highest'; under 'bfloat16' the face-128 G, D and
+     LPIPS-VGG return f32 within JAX's bounds of their f32 run; then the
+     gate (`gan2shape_torch.tools.check_precision`, the JAX gate's
+     schedule: PRECISION lines with each verdict, the faster policies
+     finite; the JSON in build/precision_check_torch.json) with a timed
+     block and a profiler window of each step under each policy (TIME
+     precision lines), and the GAN train_step at 256², channel multiplier
+     2, batch 16 under each; the policy restored at the end;
+  12. one JSON line describing every kernel, the card line again, and last
      {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Kernel builds and run
@@ -83,6 +97,10 @@ outputs stay inside the checkout (build/).
 runs phases 1-3 only and ends the same way.  It times whatever kernel
 sources the checkout holds, so two builds are compared on one card by
 running it in turns in two checkouts (the recipe is in README.md).
+
+    python3 chip_smoke.py --precision
+
+runs phases 1-3 and 11 and ends the same way.
 """
 
 import json
@@ -772,24 +790,9 @@ def run_main_path():
     img = torch.as_tensor(image, device="cuda")[None]
     lat = torch.as_tensor(latent, device="cuda")[None]
     n = TIMED_ITERS
-    per_step = {}
-
-    def timed(name, fn):
-        _cuda.reset_launches()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        per_step[name] = ((time.perf_counter() - t) * 1e3 / n,
-                          dict(_cuda.LAUNCHES))
-        return out
-
     prior = torch.full((128, 128), 1.0, device="cuda")
-    l0 = timed("prior", lambda: trainer.run_prior(img, prior, n))
-    collected, l1 = timed("step1", lambda: trainer.run_step1(img, n))
-    coll2, l2 = timed("step2", lambda: trainer.run_step2(img, lat, collected,
-                                                         n))
-    l3 = timed("step3", lambda: trainer.run_step3(img, lat, coll2, n))
+    per_step, (l0, l1, l2, l3), collected, coll2 = timed_steps(
+        trainer, img, lat, prior, n)
     for name, (ms, counts) in per_step.items():
         print(f"STEP {name}: {ms:.2f} ms/iter over {n} iterations; "
               f"launches per iteration "
@@ -807,13 +810,41 @@ def run_main_path():
     return launches, step_ms
 
 
+def timed_steps(trainer, img, lat, prior, n):
+    """A timed block of `n` iterations of each step, alone, by the host
+    clock around synchronised runs.  Returns ({step: (ms/iter, launches in
+    the block)}, the four loss lists, collected, collected2)."""
+    import torch
+    from gan2shape_torch.ops import _cuda
+
+    per_step = {}
+
+    def timed(name, fn):
+        _cuda.reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        per_step[name] = ((time.perf_counter() - t) * 1e3 / n,
+                          dict(_cuda.LAUNCHES))
+        return out
+
+    l0 = timed("prior", lambda: trainer.run_prior(img, prior, n))
+    collected, l1 = timed("step1", lambda: trainer.run_step1(img, n))
+    coll2, l2 = timed("step2", lambda: trainer.run_step2(img, lat, collected,
+                                                         n))
+    l3 = timed("step3", lambda: trainer.run_step3(img, lat, coll2, n))
+    return per_step, (l0, l1, l2, l3), collected, coll2
+
+
 def profile_steps(trainer, img, lat, prior, collected, coll2, step_ms,
                   label=""):
     """One torch.profiler window of PROFILED_ITERS iterations per step:
     device-busy ms per iteration, its share of the unprofiled ms/iter of
     the timed block (`step_ms`; the profiler slows the host), CUDA kernels
     per iteration, the kernels that take the most device time, and the
-    ported kernels' share.  Reports; never fails the run."""
+    ported kernels' share.  Reports; never fails the run.  Returns {step:
+    device-busy ms/iter}, None for a window that was not measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -822,6 +853,7 @@ def profile_steps(trainer, img, lat, prior, collected, coll2, step_ms,
             "step1": lambda: trainer.run_step1(img, n),
             "step2": lambda: trainer.run_step2(img, lat, collected, n),
             "step3": lambda: trainer.run_step3(img, lat, coll2, n)}
+    busy = {}
     for name, fn in runs.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -831,10 +863,13 @@ def profile_steps(trainer, img, lat, prior, collected, coll2, step_ms,
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t) * 1e6
         try:
-            report_profile(label + name, prof, wall_us, step_ms[name], n)
+            busy[name] = report_profile(label + name, prof, wall_us,
+                                        step_ms[name], n)
         except Exception as exc:  # a measurement only: say so, run on
+            busy[name] = None
             print(f"PROFILE {label}{name}: not measured ({exc!r})",
                   flush=True)
+    return busy
 
 
 def busy_union_us(events):
@@ -914,6 +949,7 @@ def report_profile(name, prof, wall_us, step_ms, n):
     for k, v in top:
         print(f"  {v / sum_us:6.1%} {v / n / 1e3:8.3f} ms/iter "
               f"{k[:110]}", flush=True)
+    return busy_ms
 
 
 # ---------------- phase 7: the entry points ----------------
@@ -1958,12 +1994,329 @@ def gan_on_the_card(root, card):
             "launches": launched}
 
 
+# ---------------- phase 11: the precision policy ----------------
+
+# the JAX gate's schedule (tools/check_precision.py): 50 prior iterations,
+# then 40 of each step with 16 pseudo samples, at face-128
+PRECISION_ITERS = 40
+PRECISION_N_PROJ = 16
+FAST_POLICIES = ("high", "default")
+MATMUL_N = 4096
+CONV_SHAPE = (8, 256, 128)  # batch, channels in and out, size: a 3x3 conv
+# JAX's own bounds for a bf16 stack against its f32 run
+# (tests/test_stylegan2.py::test_bf16_activation_policy): the image's
+# largest difference (JAX's 0.1 for images in [-1, 1], here over the f32
+# image's largest magnitude where that is above 1: the random-weight
+# generator's images reach about 3), the loss relative, the gradient cosine;
+# LPIPS relative (with an absolute floor of 1e-4)
+BF16_IMAGE, BF16_LOSS, BF16_COS = 0.1, 0.05, 0.95
+
+
+def run_precision(card):
+    """The precision policy on the card: the flags of each policy take
+    effect (and no module built afterwards undoes them), the geometry is
+    bit-equal under every policy, the bf16 frozen stacks return f32 within
+    JAX's bounds of their f32 run; then the gate at the JAX gate's schedule
+    with a timed block and a profiler window of each step under each
+    policy, and the GAN train_step under each.  Restores the policy."""
+    import torch
+    from gan2shape_torch.utils import precision as P
+
+    t_phase = time.perf_counter()
+    before = (P.matmul_precision(), P.act_dtype())
+    with P.policy():
+        precision_flags()
+        precision_geometry()
+        precision_bf16_stacks()
+        precision_gate(card)
+        precision_gan_steps(card)
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    check((P.matmul_precision(), P.act_dtype()) == before
+          and flags == (before[0] != "highest",) * 2,
+          f"the policy restored after the phase: {P.matmul_precision()} / "
+          f"{P.act_dtype()}, TF32 flags (cuBLAS, cuDNN) {flags}")
+    print(f"TIME precision phase: {time.perf_counter() - t_phase:.2f} s wall "
+          f"({card})", flush=True)
+
+
+def precision_flags():
+    """Under each policy, set before a Renderer is built (resolve_device
+    runs there): the flags read back as the name maps, and a 4096² f32
+    matmul and a 3x3 conv of 256 channels at 128² differ from 'highest' and
+    run faster under 'high' and 'default'."""
+    import torch
+    import torch.nn.functional as F
+    from gan2shape_torch.rendering.renderer import Renderer
+    from gan2shape_torch.utils import precision as P
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = MATMUL_N
+    a = torch.randn(n, n, generator=g, device="cuda")
+    b = torch.randn(n, n, generator=g, device="cuda")
+    bt, c, s = CONV_SHAPE
+    x = torch.randn(bt, c, s, s, generator=g, device="cuda")
+    w = torch.randn(c, c, 3, 3, generator=g, device="cuda") / math.sqrt(9 * c)
+    ops = {f"matmul {n}x{n}": lambda: a @ b,
+           f"conv3x3 {c}ch {s}^2 B={bt}": lambda: F.conv2d(x, w, padding=1)}
+    ref, ms = {}, {}
+    for name in ("highest",) + FAST_POLICIES:
+        P.set_matmul_precision(name)
+        Renderer(FACE128, 128, 0.9, 1.1)  # resolve_device after the policy
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        tf32 = name != "highest"
+        check(flags == (tf32, tf32),
+              f"precision {name}: TF32 flags read back (cuBLAS, cuDNN) "
+              f"{flags} after a Renderer was built, float32 matmul "
+              f"precision {torch.get_float32_matmul_precision()!r}")
+        for op, fn in ops.items():
+            out = fn()
+            ms[name, op] = cuda_ms(fn, reps=20)
+            if name == "highest":
+                ref[op] = out
+                print(f"TIME precision highest {op}: {ms[name, op]:.4f} ms "
+                      f"by CUDA events", flush=True)
+                continue
+            err = float((out - ref[op]).abs().max() / ref[op].abs().max())
+            check(err > 0 and ms[name, op] < ms["highest", op],
+                  f"precision {name} {op}: {err:.2e} of the largest from "
+                  f"'highest', {ms[name, op]:.4f} ms against "
+                  f"{ms['highest', op]:.4f} by CUDA events")
+
+
+def precision_geometry():
+    """At B=16, 128², 'grid' mode, on fixed inputs: warp_canon_depth, its
+    gradient with respect to depth, the raster keys, the resize (both ways,
+    and its gradient) and the view and light samples are bit-equal under
+    'high' and 'default' to 'highest'.  The depth cotangent is nonzero on
+    every 4th row and column only, so each vertex's gradient gathers at
+    most one nonzero term in the splat's atomic adds and the gradient is
+    the same in every run (with a dense cotangent the adds' order varies)."""
+    import torch
+    from gan2shape_torch.core.model import ViewLightSampler
+    from gan2shape_torch.ops.rasterize import winner_keys
+    from gan2shape_torch.ops.resize import resize
+    from gan2shape_torch.rendering.renderer import (
+        Renderer, get_transform_matrices,
+    )
+    from gan2shape_torch.utils import precision as P
+
+    b, s = 16, 128
+    renderer = Renderer(FACE128, s, 0.9, 1.1)
+    depth = training_scene(renderer, b, seed=11)[0]
+    views = torch.tensor((VIEWS * (b // len(VIEWS) + 1))[:b], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(12)
+    cot = torch.zeros(b, s, s, device="cuda")
+    cot[:, ::4, ::4] = torch.randn(b, s // 4, s // 4, generator=g,
+                                   device="cuda")
+    image = torch.rand(b, 3, s, s, generator=g, device="cuda") * 2 - 1
+    cot_small = torch.randn(b, 3, 64, 64, generator=g, device="cuda")
+    cot_big = torch.randn(b, 3, 256, 256, generator=g, device="cuda")
+    lo = renderer.min_depth - renderer.margin
+    hi = renderer.max_depth + renderer.margin
+
+    def run():
+        d = depth.clone().requires_grad_(True)
+        rot, trans = get_transform_matrices(views)
+        warped = renderer.warp_canon_depth(d, rot, trans, raster_mode="grid")
+        grad, = torch.autograd.grad(warped, d, cot)
+        vx, vy, vz = screen_vertices(renderer, depth, rot, trans)
+        keys = winner_keys(vx, vy, vz, renderer.raster_window, lo, hi)
+        im = image.clone().requires_grad_(True)
+        small, big = resize(im, (64, 64)), resize(im, (256, 256))
+        grad_im, = torch.autograd.grad(
+            (small * cot_small).sum() + (big * cot_big).sum(), im)
+        sampler = ViewLightSampler.default(device="cuda")
+        gs = torch.Generator(device="cuda").manual_seed(13)
+        return {"warp_canon_depth": warped.detach(), "its depth gradient":
+                grad, "raster keys": keys, "resize to 64": small.detach(),
+                "resize to 256": big.detach(), "the resize's gradient":
+                grad_im, "view sample": sampler.sample(gs, b, "view"),
+                "light sample": sampler.sample(gs, b, "light")}
+
+    P.set_matmul_precision("highest")
+    ref = run()
+    again = run()
+    check(all(torch.equal(again[k], v) for k, v in ref.items()),
+          "precision highest: the geometry repeats bit for bit "
+          f"({', '.join(ref)})")
+    for name in FAST_POLICIES:
+        P.set_matmul_precision(name)
+        got = run()
+        same = {k: torch.equal(got[k], v) for k, v in ref.items()}
+        check(all(same.values()),
+              f"precision {name}: bit-equal to 'highest' at B={b}, {s}^2, "
+              f"grid mode: {same}")
+    P.set_matmul_precision("highest")
+
+
+def precision_bf16_stacks():
+    """The face-128 frozen G, D and LPIPS-VGG (seeded random weights) under
+    'bfloat16' against their f32 run: f32 and finite outputs, within JAX's
+    bounds (BF16_*)."""
+    import torch
+    from gan2shape_torch.core.model import GAN2Shape
+    from gan2shape_torch.utils import precision as P
+
+    model = GAN2Shape(FACE128)
+    model.init_frozen(torch.Generator().manual_seed(0))
+    gen, disc, lpips = model.generator, model.discriminator, model.lpips
+    z = torch.randn(4, 512, generator=torch.Generator().manual_seed(1))
+    w = gen.style_forward(z.cuda()).detach()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    in0 = torch.rand(4, 3, 128, 128, generator=g, device="cuda") * 2 - 1
+    in1 = torch.rand(4, 3, 128, 128, generator=g, device="cuda") * 2 - 1
+
+    def run():
+        wv = w.clone().requires_grad_(True)
+        img, feats = gen([wv], input_is_w=True, return_features=True)
+        score, dfeats = disc(img)
+        loss = sum(torch.mean(torch.abs(f)) for f in dfeats[:3])
+        grad, = torch.autograd.grad(loss, wv)
+        with torch.no_grad():
+            dist = lpips(in0, in1)
+        return {"image": img.detach(), "score": score.detach(),
+                "loss": loss.detach(), "grad": grad, "lpips": dist,
+                **{f"G tap {i}": f.detach() for i, f in enumerate(feats)},
+                **{f"D tap {i}": f.detach() for i, f in enumerate(dfeats)}}
+
+    P.set_act_dtype("float32")
+    ref = run()
+    P.set_act_dtype("bfloat16")
+    got = run()
+    P.set_act_dtype("float32")
+    taps = {net: sum(k.startswith(net + " tap") for k in got)
+            for net in ("G", "D")}
+    check(all(v.dtype == torch.float32 and bool(torch.isfinite(v).all())
+              for v in got.values()),
+          f"precision bfloat16: the face-128 G image and {taps['G']} taps, "
+          f"the D score and {taps['D']} taps, the tap loss, its gradient "
+          f"and the LPIPS-VGG distance are f32 and finite")
+    rel = {k: float((got[k] - v).abs().max() / v.abs().max())
+           for k, v in ref.items() if "tap" in k or k == "score"}
+    print(f"INFO precision bfloat16: of the largest f32 value: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()), flush=True)
+    scale = max(1.0, float(ref["image"].abs().max()))
+    img_err = float((got["image"] - ref["image"]).abs().max())
+    loss_rel = float(abs(got["loss"] - ref["loss"]) / abs(ref["loss"]))
+    cos = float(torch.nn.functional.cosine_similarity(
+        got["grad"].flatten(), ref["grad"].flatten(), dim=0))
+    lp_err = float(((got["lpips"] - ref["lpips"]).abs()
+                    - BF16_LOSS * ref["lpips"].abs()).max())
+    check(img_err / scale < BF16_IMAGE and loss_rel < BF16_LOSS
+          and cos > BF16_COS and lp_err <= 1e-4,
+          f"precision bfloat16 against float32 (JAX's bounds): image "
+          f"max abs {img_err:.4f} at scale {scale:.3f} (< {BF16_IMAGE} of "
+          f"it), tap loss {loss_rel:.2e} relative (< {BF16_LOSS}), "
+          f"gradient cosine {cos:.6f} (> {BF16_COS}), LPIPS "
+          f"{got['lpips'].flatten().tolist()} against "
+          f"{ref['lpips'].flatten().tolist()} (rtol {BF16_LOSS}, atol 1e-4)")
+
+
+def precision_gate(card):
+    """The gate (gan2shape_torch.tools.check_precision) at its defaults;
+    then, with each policy's trainer kept, a timed block of each step under
+    every policy, and only after all of them a profiler window of each (a
+    profiler window slows the host's later work, so timing a policy after
+    another's window would favour the first).  The faster policies must
+    stay finite; the verdicts against the bounds are findings, not the
+    phase's pass condition (the default stays exact)."""
+    import os
+    from gan2shape_torch.tools import check_precision as gate
+    from gan2shape_torch.utils import precision as P
+
+    kept = {}
+
+    def after(name, trainer, state):
+        kept[name] = (trainer, state)
+
+    res = gate.run_gate(128, PRECISION_ITERS, PRECISION_N_PROJ, "cuda",
+                        after=after)
+    times = {}
+    for name, (trainer, (img, lat, prior, _, _)) in kept.items():
+        with P.policy(*gate.POLICIES[name]):
+            per_step, _, collected, coll2 = timed_steps(
+                trainer, img, lat, prior, TIMED_ITERS)
+        kept[name] = (trainer, (img, lat, prior, collected, coll2))
+        times[name] = {k: v[0] for k, v in per_step.items()}
+    busy = {}
+    for name, (trainer, state) in kept.items():
+        with P.policy(*gate.POLICIES[name]):
+            busy[name] = profile_steps(trainer, *state, times[name],
+                                       label=f"precision {name} ")
+    kept.clear()
+    os.makedirs(os.path.dirname(gate.DEFAULT_OUT), exist_ok=True)
+    with open(gate.DEFAULT_OUT, "w") as f:
+        json.dump({**res, "card": card}, f, indent=1)
+    for step in gate.STEPS:
+        for name in FAST_POLICIES:
+            v = res["steps"][step][name]
+            print(f"PRECISION {step} {name}: tail mean {v['tail_mean']:.6g} "
+                  f"against highest {v['tail_mean_reference']:.6g}, "
+                  f"relative deviation {v['tail_rel_dev']:.4f} (bound "
+                  f"{v['bound']}), finite {v['finite']}, decreasing "
+                  f"{v['decreasing']}, verdict "
+                  f"{'pass' if v['pass'] else 'FAIL'}", flush=True)
+    for name, run in res["policies"].items():
+        step_ms = times[name]
+        for step in gate.STEPS:
+            b = busy[name].get(step)
+            print(f"TIME precision {name} {step}: {step_ms[step]:.2f} ms/iter "
+                  f"over {TIMED_ITERS} iterations, device busy "
+                  + (f"{b:.2f}" if b is not None else "not measured")
+                  + f" ms/iter; the gate's {len(run['losses'][step])} "
+                  f"iterations {run['seconds'][step]:.2f} s ({card})",
+                  flush=True)
+    check(all(v[name]["finite"] for v in res["steps"].values()
+              for name in FAST_POLICIES),
+          f"precision gate at face-128, {PRECISION_ITERS} iterations a "
+          f"step, {PRECISION_N_PROJ} pseudo samples: the faster policies' "
+          f"losses finite (verdicts: "
+          + ", ".join(f"{s} {n} {'pass' if v[n]['pass'] else 'fail'}"
+                      for s, v in res["steps"].items()
+                      for n in FAST_POLICIES) + f"); {gate.DEFAULT_OUT}")
+
+
+def precision_gan_steps(card):
+    """ms per train_step at the GAN side's width (256², channel multiplier
+    2, batch 16, ADA at p 0.6) under each policy, by CUDA events over 3
+    calls after one warm-up."""
+    import torch
+    from gan2shape_torch.models.stylegan2_train import StyleGAN2Trainer
+    from gan2shape_torch.tools.check_precision import POLICIES
+    from gan2shape_torch.utils import precision as P
+
+    trainer = StyleGAN2Trainer(GAN_SIZE, channel_multiplier=GAN_CM,
+                               use_augment=True, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    real = torch.rand(GAN_BATCH, 3, GAN_SIZE, GAN_SIZE, generator=g,
+                      device="cuda") * 2 - 1
+    for name, (matmul, act) in POLICIES.items():
+        P.set_matmul_precision(matmul)
+        P.set_act_dtype(act)
+        metrics = trainer.train_step(real, 0.6)  # warm-up
+        ms = cuda_ms(lambda: trainer.train_step(real, 0.6), reps=3, warmup=0)
+        check(all(math.isfinite(float(metrics[k]))
+                  for k in ("d_loss", "g_loss")),
+              f"precision {name} GAN train_step losses finite: d_loss "
+              f"{float(metrics['d_loss']):.4f}, g_loss "
+              f"{float(metrics['g_loss']):.4f}")
+        print(f"TIME precision {name} GAN train_step: {ms:.2f} ms per call "
+              f"by CUDA events at {GAN_SIZE}^2, channel_multiplier {GAN_CM},"
+              f" batch {GAN_BATCH}, ADA ({card})", flush=True)
+    P.set_matmul_precision("highest")
+    P.set_act_dtype("float32")
+
+
 def main(argv):
     import torch
 
     kernels_only = argv == ["--kernels"]
-    if argv and not kernels_only:
-        print(f"usage: python3 chip_smoke.py [--kernels] (got {argv})")
+    precision_only = argv == ["--precision"]
+    if argv and not (kernels_only or precision_only):
+        print(f"usage: python3 chip_smoke.py [--kernels | --precision] "
+              f"(got {argv})")
         return 2
     if not torch.cuda.is_available():
         print("FAIL no CUDA device: this smoke run needs one GPU",
@@ -1976,7 +2329,11 @@ def main(argv):
     try:
         from gan2shape_torch.device import resolve_device
         from gan2shape_torch.ops import _cuda
+        from gan2shape_torch.utils import precision as P
 
+        # phases 1-10 run at exact f32, whatever the environment asks for
+        P.set_matmul_precision("highest")
+        P.set_act_dtype("float32")
         resolve_device("cuda")
         t0 = time.perf_counter()
         logs = _cuda.build()
@@ -1991,7 +2348,9 @@ def main(argv):
         results = {}
         check_raster(results)
         check_window(results)
-        if not kernels_only:
+        if precision_only:
+            run_precision(card)
+        elif not kernels_only:
             check_raster_gradients()
             check_launches = run_check_path(results)
             run_modes_and_renders()
@@ -2000,6 +2359,7 @@ def main(argv):
             run_masker(card)
             inst_launches = run_instances(card, launches, step_ms)
             gan = run_gan_side(card)
+            run_precision(card)
     except Failed:
         return 1
     except RuntimeError as exc:  # a timing that found no device activity
@@ -2007,7 +2367,7 @@ def main(argv):
         return 1
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        if kernels_only:  # no path was driven: no launch counts
+        if kernels_only or precision_only:  # no main path: no launch counts
             if name in results:
                 kernels.append({"name": name, "source": source,
                                 "launches": None, **results[name]})

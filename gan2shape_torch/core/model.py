@@ -37,11 +37,15 @@ from gan2shape_torch.models.stylegan2 import Discriminator, Generator
 from gan2shape_torch.ops.grid_sample import grid_sample
 from gan2shape_torch.ops.resize import resize
 from gan2shape_torch.rendering.renderer import Renderer, get_transform_matrices
+from gan2shape_torch.utils.precision import (
+    exact_matmul, set_act_dtype, set_matmul_precision,
+)
 
 
 class ViewLightSampler:
-    """Multivariate-normal view/light sampler: mean + chol @ eps, on CUDA
-    unless the caller asks for the CPU (`resolve_device`)."""
+    """Multivariate-normal view/light sampler: mean + chol @ eps (exact f32
+    under every precision policy), on CUDA unless the caller asks for the
+    CPU (`resolve_device`)."""
 
     def __init__(self, view_mean, view_cov, light_mean, light_cov,
                  view_scale=1.0, device=None):
@@ -73,7 +77,7 @@ class ViewLightSampler:
             mean, chol = self.light_mean, self._light_chol
         eps = torch.randn(n, mean.shape[0], generator=generator,
                           device=mean.device)
-        s = mean[None] + torch.matmul(eps, chol.T)
+        s = mean[None] + exact_matmul(eps, chol.T)
         if kind == "view":
             scale = torch.ones_like(mean)
             scale[1] = self.view_scale
@@ -94,6 +98,12 @@ class GAN2Shape(nn.Module):
         super().__init__()
         self.device = resolve_device(device)
         self.config = dict(config)
+        # the precision policy (utils/precision.py); geometry stays exact
+        # f32 under every policy
+        if "matmul_precision" in config:
+            set_matmul_precision(config["matmul_precision"])
+        if "act_dtype" in config:
+            set_act_dtype(config["act_dtype"])
         self.z_dim = config.get("z_dim", 512)
         self.image_size = config.get("image_size", 128)
         self.gan_size = config.get("gan_size", self.image_size)

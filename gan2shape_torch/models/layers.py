@@ -26,6 +26,12 @@ class Conv2d(nn.Conv2d):
         if self.bias is not None:
             _uniform_(self.bias, bound, generator)
 
+    def forward(self, x):
+        """Weights cast to the input's dtype: a frozen trunk runs its
+        activations in the policy's `act_dtype` on f32 weights."""
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     def reset_parameters(self, generator=None):

@@ -21,6 +21,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gan2shape_torch.models.layers import Conv2d, ReLU, relu
+from gan2shape_torch.utils.precision import act_dtype
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -151,15 +152,19 @@ class LPIPS(nn.Module):
                              persistent=False)
 
     def forward(self, in0, in1):
+        # the frozen trunk runs in the policy's activation dtype; the unit
+        # norm, the difference and the heads in f32
         trunk = getattr(self, self.backbone)
-        f0 = trunk((in0 - self.shift) / self.scale)
-        f1 = trunk((in1 - self.shift) / self.scale)
+        adt = act_dtype()
+        f0 = trunk(((in0 - self.shift) / self.scale).to(adt))
+        f1 = trunk(((in1 - self.shift) / self.scale).to(adt))
         val = 0.0
         for k in range(len(self.chns)):
-            n0 = f0[k] / (torch.sqrt(torch.sum(f0[k] ** 2, 1, keepdim=True))
-                          + 1e-10)
-            n1 = f1[k] / (torch.sqrt(torch.sum(f1[k] ** 2, 1, keepdim=True))
-                          + 1e-10)
+            fk0, fk1 = f0[k].float(), f1[k].float()
+            n0 = fk0 / (torch.sqrt(torch.sum(fk0 ** 2, 1, keepdim=True))
+                        + 1e-10)
+            n1 = fk1 / (torch.sqrt(torch.sum(fk1 ** 2, 1, keepdim=True))
+                        + 1e-10)
             diff = (n0 - n1) ** 2
             if self.lpips_heads:
                 d = getattr(self, f"lin{k}")(diff)

@@ -5,6 +5,12 @@ ModulatedConv2d modulates the activations and demodulates the outputs,
 y = demod(style) * conv(x * style, scale * W), which equals the per-sample
 modulated weight of the reference (a conv is linear in per-input-channel
 scaling) and needs no grouped conv.  FIR resampling is ops.upfirdn2d.
+
+Both nets are frozen stacks of the precision policy: the synthesis and the
+discriminator keep their activations in `act_dtype()`, with the weights
+cast at each call (the parameters stay f32), and return the image, the
+score and the feature taps in f32.  The mapping, the truncation and the
+demodulation stay f32.
 """
 
 import math
@@ -17,6 +23,7 @@ from gan2shape_torch.ops.fused_act import (
     fused_leaky_relu, inverse_fused_leaky_relu,
 )
 from gan2shape_torch.ops.upfirdn2d import setup_filter, upfirdn2d
+from gan2shape_torch.utils.precision import act_dtype
 
 
 def channel_map(channel_multiplier):
@@ -70,11 +77,11 @@ class EqualLinear(nn.Module):
             nn.init.constant_(self.bias, self.bias_init)
 
     def forward(self, x):
-        out = torch.matmul(x, (self.weight * self.scale).T)
+        out = torch.matmul(x, (self.weight * self.scale).to(x.dtype).T)
         if self.activation == "fused_lrelu":
             return fused_leaky_relu(out, self.bias * self.lr_mul)
         if self.bias is not None:
-            out = out + self.bias * self.lr_mul
+            out = out + (self.bias * self.lr_mul).to(out.dtype)
         return out
 
     def invert(self, x):
@@ -106,10 +113,10 @@ class EqualConv2d(nn.Module):
             nn.init.zeros_(self.bias)
 
     def forward(self, x):
-        out = F.conv2d(x, self.weight * self.scale, stride=self.stride,
-                       padding=self.padding)
+        out = F.conv2d(x, (self.weight * self.scale).to(x.dtype),
+                       stride=self.stride, padding=self.padding)
         if self.bias is not None:
-            out = out + self.bias.reshape(1, -1, 1, 1)
+            out = out + self.bias.reshape(1, -1, 1, 1).to(out.dtype)
         return out
 
 
@@ -138,16 +145,19 @@ class ModulatedConv2d(nn.Module):
         style = self.modulation(style)  # (B, in)
         wgt = self.weight[0] * self.scale  # (out, in, k, k)
         if self.demodulate:
+            # a normalisation constant: f32 under every activation dtype
             wsq = torch.sum(wgt ** 2, dim=(2, 3))  # (out, in)
-            demod = torch.rsqrt(torch.matmul(style ** 2, wsq.T) + 1e-8)
-        x = x * style[:, :, None, None]
+            demod = torch.rsqrt(torch.matmul(style.float() ** 2, wsq.T)
+                                + 1e-8)
+        x = x * style[:, :, None, None].to(x.dtype)
+        wgt = wgt.to(x.dtype)
         if self.upsample:
             out = F.conv_transpose2d(x, wgt.transpose(0, 1), stride=2)
             out = self.blur(out)
         else:
             out = F.conv2d(x, wgt, padding=self.kernel_size // 2)
         if self.demodulate:
-            out = out * demod[:, :, None, None]
+            out = out * demod[:, :, None, None].to(out.dtype)
         return out
 
 
@@ -160,7 +170,7 @@ class NoiseInjection(nn.Module):
         nn.init.zeros_(self.weight)
 
     def forward(self, x, noise):
-        return x + self.weight * noise
+        return x + (self.weight * noise).to(x.dtype)
 
 
 class FusedLeakyReLU(nn.Module):
@@ -219,7 +229,8 @@ class ToRGB(nn.Module):
         nn.init.zeros_(self.bias)
 
     def forward(self, x, style, skip=None):
-        out = self.conv(x, style) + self.bias
+        out = self.conv(x, style)
+        out = out + self.bias.to(out.dtype)
         if skip is not None:
             out = out + self.upsample(skip, up=2)
         return out
@@ -337,7 +348,12 @@ class Generator(nn.Module):
         else:
             latent = torch.stack(styles, 1)
 
-        out = self.input(latent.shape[0])
+        # the synthesis runs in the activation dtype; the mapping and the
+        # truncation above stay f32
+        adt = act_dtype()
+        latent = latent.to(adt)
+        noise = [n.to(adt) for n in noise]
+        out = self.input(latent.shape[0]).to(adt)
         out = self.conv1(out, latent[:, 0], noise[0])
         skip = self.to_rgb1(out, latent[:, 1])
         features = []
@@ -349,7 +365,8 @@ class Generator(nn.Module):
             skip = to_rgb(out, latent[:, i + 2], skip)
             features.append(out)
             i += 2
-        return skip, (features if return_features else None)
+        return skip.float(), ([f.float() for f in features]
+                              if return_features else None)
 
     def invert(self, latent_projection, truncation=1.0, mean_latent=None,
                noise=None):
@@ -427,12 +444,12 @@ class Discriminator(nn.Module):
     def forward(self, x, ftr_num=100):
         """Returns (score or 0, feature taps after every block but the
         first, stopping once `ftr_num` taps are collected)."""
-        out = x
+        out = x.to(act_dtype())
         features = []
         for i, block in enumerate(self.convs):
             out = block(out)
             if i > 0:
-                features.append(out)
+                features.append(out.float())
             if len(features) >= ftr_num:
                 return x.new_zeros(()), features
         batch, channel, height, width = out.shape
@@ -443,6 +460,6 @@ class Discriminator(nn.Module):
         stddev = stddev.mean((2, 3, 4), keepdim=True).squeeze(2)
         stddev = stddev.repeat(group, 1, height, width)
         out = self.final_conv(torch.cat([out, stddev], 1))
-        features.append(out)
+        features.append(out.float())
         out = self.final_linear(out.reshape(batch, -1))
-        return out, features
+        return out.float(), features

@@ -1,11 +1,15 @@
 """Image resize as two matrix products: bilinear (align_corners=False) when
 growing, area (adaptive average) when shrinking — the reference's
-F.interpolate modes — and align_corners=True bilinear."""
+F.interpolate modes — and align_corners=True bilinear.  The products are
+exact f32 under every precision policy, forward and backward
+(`exact_matmul`)."""
 
 from functools import lru_cache
 
 import numpy as np
 import torch
+
+from gan2shape_torch.utils.precision import exact_matmul
 
 
 def _interp_matrix(src, in_size, out_size):
@@ -50,7 +54,7 @@ def _area_matrix(in_size, out_size):
 def _apply_separable(x, mh, mw):
     mh = torch.as_tensor(mh, device=x.device, dtype=x.dtype)
     mw = torch.as_tensor(mw, device=x.device, dtype=x.dtype)
-    return torch.matmul(torch.matmul(mh, x), mw.T)
+    return exact_matmul(exact_matmul(mh, x), mw.T)
 
 
 def resize(image, size):

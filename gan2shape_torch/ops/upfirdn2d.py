@@ -10,11 +10,16 @@ order of derivative is again an FIR filter.  Through `F.conv2d` alone, the
 second derivative (R1's, in the StyleGAN2 trainer) also computes the
 constant kernel's gradient: a convolution with the whole image as its
 kernel, which took 97% of an R1 step's 20.5 s on an H100 (PERF.md, PR 7).
+Both run with TF32 off under every precision policy (`exact_f32`), as the
+JAX package pins its generic path to HIGHEST; under the bf16 activation
+policy they run in their input's bf16.
 """
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gan2shape_torch.utils.precision import exact_f32
 
 
 def setup_filter(k, gain=1.0):
@@ -34,7 +39,8 @@ class _FIR(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(w)
-        return F.conv2d(x, w)
+        with exact_f32():
+            return F.conv2d(x, w)
 
     @staticmethod
     def backward(ctx, grad):
@@ -48,7 +54,8 @@ class _FIRAdjoint(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w):
         ctx.save_for_backward(w)
-        return F.conv_transpose2d(x, w)
+        with exact_f32():
+            return F.conv_transpose2d(x, w)
 
     @staticmethod
     def backward(ctx, grad):

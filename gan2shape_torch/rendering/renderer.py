@@ -2,6 +2,9 @@
 under novel views (the hot path of all three method steps), and the
 mesh-RGB renders and yaw/pitch sweeps used for visualisation.
 
+Every matmul here is `exact_matmul`: geometry stays exact f32, forward and
+backward, under every precision policy (utils/precision.py).
+
 Conventions: pixel grid (x right, y down) with centers at integers;
 intrinsics from fov with c = (s-1)/2; view vector (rx, ry, rz, tx, ty, tz);
 rotation about the point (0, 0, rot_center_depth); screen grids normalised to
@@ -18,6 +21,7 @@ from gan2shape_torch.ops.grid_sample import grid_sample, grid_sample_im_mask
 from gan2shape_torch.ops.rasterize import (
     grid_faces, rasterize_attributes, rasterize_depth,
 )
+from gan2shape_torch.utils.precision import exact_matmul
 
 EPS = 1e-7
 
@@ -35,7 +39,7 @@ def get_rotation_matrix(tx, ty, tz):
                        -sy, zeros, cy], -1).reshape(-1, 3, 3)
     m_z = torch.stack([cz, -sz, zeros, sz, cz, zeros,
                        zeros, zeros, ones], -1).reshape(-1, 3, 3)
-    return torch.matmul(m_z, torch.matmul(m_y, m_x))
+    return exact_matmul(m_z, exact_matmul(m_y, m_x))
 
 
 def get_transform_matrices(view):
@@ -100,7 +104,7 @@ class Renderer:
 
     def depth_to_3d_grid(self, depth):
         """(B, H, W) depth -> (B, H, W, 3) camera-space points."""
-        pts = torch.matmul(self._grid_xy1.to(depth.dtype),
+        pts = exact_matmul(self._grid_xy1.to(depth.dtype),
                            self.inv_K.T.to(depth.dtype))
         return pts[None] * depth[..., None]
 
@@ -108,14 +112,14 @@ class Renderer:
         """(B, H, W, 3) points -> normalised [-1, 1] screen grid."""
         b, h, w, _ = grid_3d.shape
         g = grid_3d / grid_3d[..., 2:]
-        g = torch.matmul(g, self.K.T.to(grid_3d.dtype))
+        g = exact_matmul(g, self.K.T.to(grid_3d.dtype))
         wh = torch.tensor([w - 1, h - 1], dtype=grid_3d.dtype,
                           device=grid_3d.device)
         return g[..., :2] / wh * 2.0 - 1.0
 
     def rotate_pts(self, pts, rot_mat):
         c = self._centroid.to(pts.dtype)
-        return torch.matmul(pts - c, rot_mat.transpose(1, 2)) + c
+        return exact_matmul(pts - c, rot_mat.transpose(1, 2)) + c
 
     def translate_pts(self, pts, trans_xyz):
         return pts + trans_xyz
@@ -145,7 +149,7 @@ class Renderer:
 
     def _project_screen(self, pts):
         """Camera-space points (B, N, 3) -> pixel screen coords + depth."""
-        proj = torch.matmul(pts, self.K.T.to(pts.dtype))
+        proj = exact_matmul(pts, self.K.T.to(pts.dtype))
         z = torch.clamp_min(proj[..., 2], 1e-6)
         return proj[..., 0] / z, proj[..., 1] / z, pts[..., 2]
 

@@ -1,1 +1,2 @@
-"""Host-side helpers of the entry points: the config merge and the plots."""
+"""Host-side helpers of the entry points (the config merge, the plots) and
+the precision policy."""

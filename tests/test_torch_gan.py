@@ -38,10 +38,12 @@ import torch
 from gan2shape_tpu.models import augment as JA
 from gan2shape_tpu.models.stylegan2_train import \
     StyleGAN2Trainer as JTrainer
+from gan2shape_tpu.utils import precision as jprec
 
 from gan2shape_torch.convert import jax2torch
 from gan2shape_torch.models import augment as TA
 from gan2shape_torch.models.stylegan2_train import StyleGAN2Trainer
+from gan2shape_torch.utils import precision as prec
 
 ROOT = Path(__file__).resolve().parents[1]
 SIZE, STYLE, N_MLP, B = 16, 32, 2, 2
@@ -342,6 +344,65 @@ def test_iteration0_losses_match_jax(runs):
     _, jp, _, tp = out["g_reg"]
     for k in ("path_loss", "path_length", "mean_path_length"):
         assert float(tp[k]) > 0 and _rel_max(tp[k], jp[k]) <= 1e-5, k
+
+
+# under the bf16 activation policy, port against JAX from the same init
+# and injected inputs, relative (measured: d_loss 1.5e-4, the G half's
+# g_loss 5.7e-3, the mean scores 5.0e-3 and 7.9e-3: the scores leave D's
+# last layer in bf16, a rounding step of 3.9e-3, and the losses are means
+# of two softplus of them)
+BF16_TOL = {"d_loss": 2e-3, "g_loss": 2e-2, "real_score": 3e-2,
+            "fake_score": 3e-2}
+
+
+def test_iteration0_losses_under_bf16_match_jax(runs):
+    """The main step under the bf16 activation policy on both sides, from
+    the same init and injected inputs: the D half's loss and scores against
+    JAX's bf16 step and within JAX's 5% loss bound of the port's own f32
+    step; the G half's loss against JAX's (on JAX's updated D, as
+    `runs` does at f32); the parameters and Adam's moments stay f32."""
+    out, state0, _ = runs
+    tm32 = out["train"][3]
+    jt = JTrainer(size=SIZE, style_dim=STYLE, n_mlp=N_MLP,
+                  channel_multiplier=1, use_augment=True)
+    gen = jt.generator
+    inputs = _inputs(2, gen.n_latent, gen.num_layers)
+    real = np.random.default_rng(1).uniform(
+        -1, 1, (B, 3, SIZE, SIZE)).astype(np.float32)
+    jinj, tinj = {}, {}
+    # a new JAX trainer traces its jitted step under the policy set now
+    _patch_jax(jt, jinj)
+    with prec.policy(act="bfloat16"):
+        jprec.set_act_dtype("bfloat16")
+        try:
+            jinj.update(copy.deepcopy(inputs["train"]))
+            js, jm = jt.train_step(_copy(state0), jnp.asarray(real),
+                                   jax.random.PRNGKey(1), jnp.float32(ADA_P))
+        finally:
+            jprec.set_act_dtype(None)
+        tt = _port_trainer(state0)
+        _patch_port(tt, tinj)
+        tinj.update(copy.deepcopy(inputs["train"]))
+        tm = tt.d_step(T(real), ADA_P)
+        tg = _port_trainer(state0)
+        tg.discriminator.load_state_dict(
+            jax2torch.discriminator_state_dict(js.d_params))
+        _patch_port(tg, tinj)
+        tinj.update({k: v[-1:] for k, v in
+                     copy.deepcopy(inputs["train"]).items()})
+        tm["g_loss"] = tg.g_step(B, ADA_P)
+    for k, tol in BF16_TOL.items():
+        assert _rel_max(tm[k], jm[k]) <= tol, (k, float(tm[k]), float(jm[k]))
+    for k in ("d_loss", "real_score", "fake_score"):
+        assert _rel_max(tm[k], tm32[k]) < 0.05, k
+    for t in (tt, tg):
+        for net in (t.generator, t.discriminator):
+            assert all(p.dtype == torch.float32 for p in net.parameters())
+    for opt in (tt.d_optim, tg.g_optim):
+        assert opt.state
+        for st in opt.state.values():
+            assert st["exp_avg"].dtype == torch.float32
+            assert st["exp_avg_sq"].dtype == torch.float32
 
 
 def _named(module, params_tree, which):
