@@ -86,7 +86,29 @@ Phases, each of which must pass:
      block and a profiler window of each step under each policy (TIME
      precision lines), and the GAN train_step at 256², channel multiplier
      2, batch 16 under each; the policy restored at the end;
-  12. one JSON line describing every kernel, the card line again, and last
+  12. processes (gan2shape_torch/distributed.py), with the kernels built
+     above: (a) in this process, a world of one rank over NCCL joined
+     through torchrun's variables: an all-reduce, and a data_parallel
+     GeneralizingTrainer's step-1 block at B=32 against a plain trainer's;
+     then the one-process runs of (b)-(d) and two ranks on the card
+     started by `python -m torch.distributed.run` over gloo (NCCL refuses
+     two ranks on one device), killed with every process they started
+     after DIST_TIMEOUT: (b) phase 9's N_INSTANCES instances split 4 + 4,
+     held against one process training the same share and, at iteration
+     0, against one process of all 8, each rank's launches equal to one
+     process's; (c) GeneralizingTrainer with data_parallel over 32 images
+     split 16 + 16 in fit's order (the batched prior, a step-1 block, one
+     image's steps 2 and 3), the two ranks' nets bit-equal (a hash
+     printed by each); (d) StyleGAN2 at phase 10's width, batch 16 split
+     8 + 8 with ADA: iteration 0 of each step from the init within phase
+     10's tolerances of one process and the gradients each step applied
+     within 1e-4 of the largest, `tools.train_gan --distributed` for 2
+     iterations with rank 0's checkpoint reloading.  (a)-(c) hold a rank
+     to fixed limits (CARD_ITER0_TOL, INST_LIMITS, GEN_LIMITS), and the
+     spread of two one-process runs to the same limits; TIME distributed
+     lines (ms per iteration per rank, the collectives' share from a
+     profiler window on rank 0, peak memory per rank);
+  13. one JSON line describing every kernel, the card line again, and last
      {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Kernel builds and run
@@ -100,7 +122,17 @@ running it in turns in two checkouts (the recipe is in README.md).
 
     python3 chip_smoke.py --precision
 
-runs phases 1-3 and 11 and ends the same way.
+runs phases 1-3 and 11 and ends the same way, and
+
+    python3 chip_smoke.py --distributed
+
+phases 1-3 and 12;
+
+    python3 chip_smoke.py --distributed-planted
+
+phases 1-3 and 12 without (a), with faults planted in the ranks
+(FAULTS: G2S_SMOKE_PLANT names them, default draws,unaveraged,stddev):
+the checks of the planted faults must fail, and only those.
 """
 
 import json
@@ -1396,6 +1428,44 @@ def run_masker(card):
 # ---------------- phase 9: instances in parallel ----------------
 
 
+def counted_fit(trainer, images, latents, priors):
+    """The instance trainer's fit of phase 6's stage with the launch counts
+    zeroed just before and read just after: (history, launches, s)."""
+    import torch
+    from gan2shape_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.fit(images, latents, priors, stages=[STAGE])
+    torch.cuda.synchronize()
+    return history, dict(_cuda.LAUNCHES), time.perf_counter() - t0
+
+
+def timed_instance_steps(trainer, img, lat, prior, k):
+    """k iterations of the prior and of each step, each on the host clock
+    around a synchronised block: ({step: ms/iter}, (step 1's and step 2's
+    collected state), the losses)."""
+    import torch
+
+    per_step = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        per_step[name] = (time.perf_counter() - t) * 1e3 / k
+        return out
+
+    l0 = timed("prior", lambda: trainer.run_prior(img, prior, k))
+    collected, l1 = timed("step1", lambda: trainer.run_step1(img, k))
+    coll2, l2 = timed("step2", lambda: trainer.run_step2(img, lat, collected,
+                                                         k))
+    l3 = timed("step3", lambda: trainer.run_step3(img, lat, coll2, k))
+    return per_step, (collected, coll2), l0 + l1 + l2 + l3
+
+
 def run_instances(card, seq_launches, seq_step_ms):
     """The face-128 InstanceParallelTrainer at N_INSTANCES on the card:
     phase 6's fit with the launch counts zeroed before and read after (each
@@ -1406,7 +1476,6 @@ def run_instances(card, seq_launches, seq_step_ms):
     import numpy as np
     import torch
     from gan2shape_torch.core.trainer import Trainer
-    from gan2shape_torch.ops import _cuda
     from gan2shape_torch.parallel import InstanceParallelTrainer
 
     n = N_INSTANCES
@@ -1434,14 +1503,8 @@ def run_instances(card, seq_launches, seq_step_ms):
           f"init and image: {rel:.2e} relative (<= 1e-5)")
     del seq
 
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    _cuda.reset_launches()
-    t0 = time.perf_counter()
-    history = trainer.fit(images, latents, priors, stages=[STAGE])
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = dict(_cuda.LAUNCHES)
+    history, launches, fit_s = counted_fit(trainer, images, latents, priors)
     print(f"instance-parallel fit of {n} (prior {FACE128['n_epochs_prior']} "
           f"+ {STAGE}) in {fit_s:.2f} s; launches {launches}", flush=True)
     losses = [x for h in history for k in ("losses_step1", "losses_step2",
@@ -1454,24 +1517,11 @@ def run_instances(card, seq_launches, seq_step_ms):
           f"each kernel launched as often for {n} instances as for one "
           f"(instances, one): {same}")
 
-    per_step = {}
     k = TIMED_ITERS
     prior = torch.as_tensor(priors, device="cuda")
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        per_step[name] = (time.perf_counter() - t) * 1e3 / k
-        return out
-
-    l0 = timed("prior", lambda: trainer.run_prior(img, prior, k))
-    collected, l1 = timed("step1", lambda: trainer.run_step1(img, k))
-    coll2, l2 = timed("step2", lambda: trainer.run_step2(img, lat, collected,
-                                                         k))
-    l3 = timed("step3", lambda: trainer.run_step3(img, lat, coll2, k))
-    check(all(bool(torch.isfinite(x).all()) for x in l0 + l1 + l2 + l3),
+    per_step, (collected, coll2), timed_losses = timed_instance_steps(
+        trainer, img, lat, prior, k)
+    check(all(bool(torch.isfinite(x).all()) for x in timed_losses),
           "instance-parallel timed-block losses finite")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     for name, ms in per_step.items():
@@ -1589,16 +1639,27 @@ def gan_inputs(b, seed):
                           (1, 3, GAN_SIZE, GAN_SIZE)).astype(np.float32)}}
 
 
-def iteration0_values(device, real, inputs):
+def first_moments(optim):
+    """Adam's first moment of each parameter, in order: with b1 = 0 (the
+    GAN trainer's), the last step's gradient itself."""
+    return [optim.state[p]["exp_avg"].detach().cpu()
+            for g in optim.param_groups for p in g["params"]]
+
+
+def iteration0_values(device, real, inputs=None, mesh=None, record=None):
     """train_step's D and G losses, R1 and the path penalty, each from the
-    seeded init at GAN_SIZE with `inputs` injected, on `device`."""
+    seeded init at GAN_SIZE on `device`, with `inputs` injected (None: the
+    trainer's own draws, the whole batch's under a group's `mesh`).  A
+    `record` dict also gets the gradients each step applied (Adam's first
+    moments) and the nets after train_step."""
     import copy
 
     import torch
     from gan2shape_torch.models.stylegan2_train import StyleGAN2Trainer
 
     trainer = StyleGAN2Trainer(GAN_SIZE, channel_multiplier=GAN_CM,
-                               use_augment=True, seed=0, device=device)
+                               use_augment=True, seed=0, device=device,
+                               mesh=mesh)
     init = copy.deepcopy(trainer.state_dict())
     real = torch.as_tensor(real, device=trainer.device)
     out = {}
@@ -1610,15 +1671,27 @@ def iteration0_values(device, real, inputs):
         trainer.g_optim.load_state_dict(init["g_optim"])
         trainer.d_optim.load_state_dict(init["d_optim"])
         trainer.mean_path_length = init["mean_path_length"].clone()
-        inject(trainer, copy.deepcopy(inputs[step]))
+        if inputs is not None:
+            inject(trainer, copy.deepcopy(inputs[step]))
         if step == "train":
             m = trainer.train_step(real, 0.6)
             out["d_loss"], out["g_loss"] = float(m["d_loss"]), \
                 float(m["g_loss"])
+            if record is not None:
+                record["train d"] = first_moments(trainer.d_optim)
+                record["train g"] = first_moments(trainer.g_optim)
+                record["after_train_step"] = {
+                    k: {n: v.detach().cpu().clone() for n, v in
+                        getattr(trainer, k).state_dict().items()}
+                    for k in ("generator", "discriminator")}
         elif step == "d_reg":
             out["r1"] = float(trainer.d_reg_step(real, 0.6))
+            if record is not None:
+                record["r1 d"] = first_moments(trainer.d_optim)
         else:
             out["path"] = float(trainer.g_reg_step()["path_loss"])
+            if record is not None:
+                record["path g"] = first_moments(trainer.g_optim)
     return out
 
 
@@ -2309,14 +2382,780 @@ def precision_gan_steps(card):
     P.set_act_dtype("float32")
 
 
+# ---------------- phase 12: processes ----------------
+
+DIST_RANKS = 2          # on the one card: gloo (NCCL refuses two ranks)
+DIST_DEVICE = "cuda"
+DIST_TIMEOUT = 600      # seconds for the ranks' launch (the phase: < 180)
+DIST_IMAGES = 32        # the face config's batch_size, split 16 + 16
+DIST_PRIOR = 5          # (c)'s batched prior iterations, which fit runs first
+DIST_STAGE = {"step1": 5, "step2": 1, "step3": 1}
+DIST_GAN_BATCH = 16     # phase 10's, split 8 + 8
+DIST_GAN_IMAGES = 16
+DIST_TIMED = 3
+# A rank's run against one process's, on the card: fixed limits between
+# the largest gap of sound runs and the smallest gap of a planted fault
+# (`--distributed-planted`; PERF.md §6: sound gaps up to 4.6e-6 at
+# iteration 0, 6.2e-3 in (b)'s curves and 4.4e-3 in its nets, 2.4e-4 in
+# (c)'s losses and 1.0e-3 in its nets, 1.2e-3 in a GAN gradient; unsliced
+# draws moved iteration 0 by 1.3e-2 and the curves by 2.1e-2, a per-rank
+# stddev the GAN gradients by 1.2e-2 or more).  The spread of two
+# one-process runs made in the same run is held to them too.
+CARD_ITER0_TOL = 1e-5   # iteration-0 losses, relative (phase 9's bound)
+INST_LIMITS = {"curves": 1e-2, "nets": 1e-2}
+GEN_LIMITS = {"losses": 3e-3, "nets": 3e-3}  # ROADMAP C's generalizing
+GAN_GRAD_TOL = 3e-3     # the gradients a GAN step applied, of the largest
+# b1 = 0 Adam moves a parameter by up to lr (2e-3 * 16/17 for D) on its
+# first step whatever the gradient: a sanity bound only
+GAN_PARAM_TOL = 2 * 2e-3 * 16 / 17
+GAN_GRADS = ("train d", "train g", "r1 d", "path g")
+
+
+def per_image():
+    """How many images of (c)'s batch run their steps 2 and 3."""
+    import os
+
+    return int(os.environ.get("G2S_SMOKE_PER_IMAGE", "1"))
+
+
+def dist_face_config(**kw):
+    return dict(FACE128, n_epochs_generalized=1, **kw)
+
+
+def state_hash(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def collective_ms(prof):
+    """Host milliseconds spent in the collectives of a profiler window
+    (the backends' own spans, gloo:* or nccl:*, waits included)."""
+    return sum(e.cpu_time_total for e in prof.key_averages()
+               if e.key.startswith(("gloo:", "nccl:"))) / 1e3
+
+
+def net_gap(a, b):
+    return max(float((v - b[k]).abs().max()) for k, v in a.items())
+
+
+def curve_gap(a, b):
+    """The largest |a - b| / (1 + |b|) over loss lists: <= tol when they
+    are np.allclose with rtol = atol = tol."""
+    return max((abs(x - y) / (1 + abs(y)) for p, q in zip(a, b)
+                for x, y in zip(p, q)), default=0.0)
+
+
+def dist_instances(job, out, mesh=None, key="instances", timed=True):
+    """(b) on one rank or one process: the N_INSTANCES face-128 instances
+    (this rank's share, or `mesh`'s: a Mesh without a group trains one
+    rank's share in one process): iteration-0 losses from the init (step
+    2's samples drawn from a seeded generator on the card), phase 9's fit
+    with the launches counted, a timed block of each step (`timed`), peak
+    memory."""
+    import torch
+    from gan2shape_torch.parallel import InstanceParallelTrainer
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = InstanceParallelTrainer(FACE128, N_INSTANCES, seed=0,
+                                      mesh=mesh)
+    img, lat, prior = (trainer._batch(job[k])
+                       for k in ("images", "latents", "priors"))
+    m = trainer.model
+    with torch.no_grad():
+        l_prior, _ = m.depth_net_forward(img, prior)
+        inv = m.step1_invariants(img)
+        l1, albedo = m.step1_iter(img, inv)
+        collected = (inv["normal"], inv["light_a"], inv["light_b"], albedo,
+                     inv["depth"])
+        pool = m.step2_sample(torch.Generator("cuda").manual_seed(1),
+                              collected, FACE128["n_proj_samples"])
+        l2, coll2 = m.step2_loss(lat, *pool, m.step2_invariants(lat))
+        l3, _ = m.forward_step3(img, lat, coll2)
+    history, launches, fit_s = counted_fit(trainer, job["images"],
+                                           job["latents"], job["priors"])
+    ms = (timed_instance_steps(trainer, img, lat, prior, DIST_TIMED)[0]
+          if timed else None)
+    out[key] = {
+        "first": trainer.first, "n": trainer.n,
+        "iteration0": torch.stack([l_prior, l1, l2, l3]).cpu(),
+        "history": history, "launches": launches, "fit_s": fit_s,
+        "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "nets": [{k: v.cpu() for k, v in
+                  trainer.model.nets.instance(j).state_dict().items()}
+                 for j in range(trainer.n)]}
+
+
+def dist_generalizing(job, out, data_parallel, logdir=None,
+                      key="generalizing"):
+    """(c) on the ranks (`data_parallel`) or one process: GeneralizingTrainer
+    over one batch of DIST_IMAGES face-128 images in fit's order, cut in
+    depth (the nets broadcast from rank 0 under a group, DIST_PRIOR
+    iterations of the batched prior, a step-1 block, then step 2 and step
+    3 of the first G2S_SMOKE_PER_IMAGE images, default 1, where fit runs
+    all 32), the losses and nets after each; then a timed step-1 block (a
+    profiler window of it on rank 0 when `logdir`)."""
+    import torch
+    from gan2shape_torch import distributed
+    from gan2shape_torch.core import diagnostics
+    from gan2shape_torch.core.trainer import GeneralizingTrainer
+
+    def nets():
+        return {k: v.detach().cpu().clone()
+                for k, v in trainer.model.nets.state_dict().items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer = GeneralizingTrainer(dist_face_config(
+        data_parallel=data_parallel), seed=0)
+    images, latents, priors = (
+        torch.as_tensor(job[k], device=trainer.device)
+        for k in ("gen_images", "gen_latents", "gen_priors"))
+    if trainer.grouped:
+        distributed.broadcast_(trainer.model.nets.parameters())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses, after = {}, {}
+    losses["prior"] = trainer.run_prior(images, priors, DIST_PRIOR)
+    after["prior"] = nets()
+    collected, losses["step1"] = trainer.run_step1(images,
+                                                   DIST_STAGE["step1"])
+    after["step1"] = nets()
+    losses["step2"], losses["step3"] = [], []
+    for i in range(per_image()):
+        img, lat = images[i:i + 1], latents[i:i + 1]
+        coll2, l2 = trainer.run_step2(img, lat,
+                                      tuple(x[i:i + 1] for x in collected),
+                                      DIST_STAGE["step2"])
+        losses["step2"] += l2
+        losses["step3"] += trainer.run_step3(img, lat, coll2,
+                                             DIST_STAGE["step3"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    after["steps 2, 3"] = nets()
+    lead = logdir is not None and distributed.rank() == 0
+    with diagnostics.profile_trace(logdir, enabled=lead) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.run_step1(images, DIST_TIMED)
+        torch.cuda.synchronize()
+        block_ms = (time.perf_counter() - t) * 1e3
+    out[key] = {
+        "losses": {k: [float(x) for x in v] for k, v in losses.items()},
+        "nets": after, "hash": state_hash(after["steps 2, 3"].values()),
+        "run_s": run_s, "ms": block_ms / DIST_TIMED,
+        "collective_share": (collective_ms(prof) / block_ms if lead
+                             else None),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def grad_gaps(got, want):
+    """Each step's largest gap of the gradients applied, over one
+    process's largest gradient."""
+    return {k: max(float((a - b).abs().max()) for a, b in zip(got[k], w))
+            / max(float(b.abs().max()) for b in w)
+            for k, w in ((k, want[k]) for k in GAN_GRADS)}
+
+
+def dist_gan(job, out, logdir=None, want_grads=None):
+    """(d) on the ranks (under a group) or one process: iteration 0 of each
+    StyleGAN2 step from the seeded init at phase 10's width with the
+    trainer's own draws (the whole batch's, sliced on a rank) and the
+    gradients each applied (against `want_grads`, one process's, on a
+    rank); then tools.train_gan for 2 iterations with checkpoints; then
+    timed train_steps (a profiler window of one on rank 0 when
+    `logdir`)."""
+    import os
+
+    import torch
+    from gan2shape_torch import distributed
+    from gan2shape_torch.core import diagnostics
+    from gan2shape_torch.core.dataset import MultiResolutionDataset
+    from gan2shape_torch.tools import train_gan
+
+    torch.cuda.reset_peak_memory_stats()
+    ds = MultiResolutionDataset(job["gan_data"], resolution=GAN_SIZE)
+    rows = distributed.local_slice(DIST_GAN_BATCH)
+    idx = list(range(DIST_GAN_BATCH))
+    real = ds.get_batch(idx[rows], [i % 2 == 1 for i in idx][rows]).cuda()
+    rec, again = {}, {}
+    vals = iteration0_values(DIST_DEVICE, real, mesh=distributed.make_mesh(),
+                             record=rec)
+    if want_grads is None:
+        # one process: its gradients, and a second run's gap from them
+        iteration0_values(DIST_DEVICE, real, record=again)
+        grads = {"grads": {k: rec[k] for k in GAN_GRADS},
+                 "grad_gap": grad_gaps(again, rec)}
+    else:
+        grads = {"grad_gap": grad_gaps(rec, want_grads)}
+
+    run_dir = job["gan_out"] + (f"_rank{distributed.rank()}"
+                                if distributed.is_initialized() else "")
+    args = train_gan.parse_args(
+        [job["gan_data"], "--size", str(GAN_SIZE), "--channel_multiplier",
+         str(GAN_CM), "--batch", str(DIST_GAN_BATCH), "--augment",
+         "--iter", "2", "--ckpt_every", "1", "--n_sample", "4",
+         "--out_dir", run_dir]
+        + (["--distributed"] if distributed.is_initialized() else []))
+    t0 = time.perf_counter()
+    trainer, log = train_gan.run(args)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    trainer.train_step(real, 0.6)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(DIST_TIMED):
+        trainer.train_step(real, 0.6)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3 / DIST_TIMED
+    lead = logdir is not None and distributed.rank() == 0
+    with diagnostics.profile_trace(logdir, enabled=lead) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer.train_step(real, 0.6)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t) * 1e3
+    ckpt_dir = os.path.join(run_dir, "checkpoint")
+    out["gan"] = {
+        "iteration0": vals, "after_train_step": rec["after_train_step"],
+        **grads, "log": log, "run_dir": run_dir, "run_s": run_s,
+        "ms": step_ms,
+        "checkpoints": sorted(os.listdir(ckpt_dir))
+        if os.path.isdir(ckpt_dir) else [],
+        "collective_share": (collective_ms(prof) / window_ms if lead
+                             else None),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+# faults a rank can carry (`--distributed-planted`, G2S_SMOKE_PLANT names
+# them) and the check each falls under
+FAULTS = {
+    "draws": "(b)",       # step 2's samples of the rank's instances alone
+    "unaveraged": "(c)",  # Adam on the rank's own gradients
+    "mask_sum": "(c)",    # step 1's masked L1 over the rank's mask sum
+    "ungathered": "(c)",  # step 1's collected state left on its rank
+    "stddev": "(d)",      # the D's minibatch stddev over the rank's rows
+}
+PLANTED = "draws,unaveraged,stddev"  # the default set, each one caught
+
+
+def planted_faults():
+    import os
+
+    names = os.environ.get("G2S_SMOKE_PLANT", PLANTED).split(",")
+    if not set(names) <= set(FAULTS):
+        raise ValueError(f"G2S_SMOKE_PLANT={names}: faults are {list(FAULTS)}")
+    return names
+
+
+def plant_faults(names):
+    """Plant the named FAULTS in this rank (after the ranks of
+    `--distributed-planted` start)."""
+    from gan2shape_torch import distributed
+    from gan2shape_torch.core import losses
+    from gan2shape_torch.core.trainer import GeneralizingTrainer, Trainer
+    from gan2shape_torch.models.stylegan2 import Discriminator
+    from gan2shape_torch.parallel import InstanceParallelTrainer
+
+    init_model = InstanceParallelTrainer._init_model
+    masked_mean = losses.masked_mean
+    forward = Discriminator.forward
+
+    def own_draws(self, device, init):
+        init_model(self, device, init)
+        self.model.instance_range = None
+
+    if "draws" in names:
+        InstanceParallelTrainer._init_model = own_draws
+    if "unaveraged" in names:
+        GeneralizingTrainer._step = Trainer._step
+    if "mask_sum" in names:
+        losses.masked_mean = (lambda x, mask, n=1, split=False:
+                              masked_mean(x, mask, n))
+    if "ungathered" in names:
+        distributed.gather_rows_of = list
+    if "stddev" in names:
+        Discriminator.forward = (
+            lambda self, x, ftr_num=100, split_batch=False:
+            forward(self, x, ftr_num))
+
+
+def dist_rank_main(workdir):
+    """One rank of phase 12's launch (torchrun sets its variables):
+    (b), (c) and (d) on its share, its results in workdir/rank{r}.pt."""
+    import os
+
+    import torch
+    from gan2shape_torch import distributed
+    from gan2shape_torch.utils import precision as P
+
+    P.set_matmul_precision("highest")
+    P.set_act_dtype("float32")
+    if os.environ.get("G2S_SMOKE_PLANTED") == "1":
+        plant_faults(planted_faults())
+    distributed.initialize_from_env(required=True)
+    r = distributed.rank()
+    print(f"RANK {r} of {distributed.world_size()}: "
+          f"{torch.distributed.get_backend()} on "
+          f"{distributed.group_device()}", flush=True)
+    job = torch.load(os.path.join(workdir, "job.pt"), weights_only=False)
+    want_grads = torch.load(os.path.join(workdir, "gan_grads.pt"))
+    out = {}
+    try:
+        dist_instances(job, out)
+        dist_generalizing(job, out, True, logdir=os.path.join(workdir, "gen"))
+        print(f"HASH rank {r} generalizing nets {out['generalizing']['hash']}",
+              flush=True)
+        dist_gan(job, out, logdir=os.path.join(workdir, "gan"),
+                 want_grads=want_grads)
+        torch.save(out, os.path.join(workdir, f"rank{r}.pt"))
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def dist_job(tmp):
+    """Phase 12's inputs, written for the ranks: phase 9's instances, 32
+    face images with latents and priors, and a prepared GAN cache of 256²
+    images."""
+    import os
+
+    import numpy as np
+    import torch
+    from gan2shape_torch.core.priors import PriorGenerator
+    from gan2shape_torch.tools import prepare_data
+
+    rng = np.random.default_rng(10)
+    size = FACE128["image_size"]
+    n = N_INSTANCES
+    pg = PriorGenerator(size, "face", FACE128["prior_name"], device=DIST_DEVICE)
+
+    def priors(images):
+        return np.stack([pg(im)[0] for im in images])
+
+    job = {"images": rng.uniform(-1, 1, (n, 3, size, size)).astype(
+               np.float32),
+           "latents": rng.standard_normal((n, 512)).astype(np.float32),
+           "gen_images": rng.uniform(-1, 1, (DIST_IMAGES, 3, size, size)
+                                     ).astype(np.float32),
+           "gen_latents": rng.standard_normal((DIST_IMAGES, 512)).astype(
+               np.float32),
+           "gan_data": os.path.join(tmp, "gan_data"),
+           "gan_out": os.path.join(tmp, "gan_run")}
+    job["priors"] = priors(job["images"])
+    job["gen_priors"] = priors(job["gen_images"])
+    write_pngs(os.path.join(tmp, "gan_images"), DIST_GAN_IMAGES, GAN_SIZE,
+               seed=13)
+    prepare_data.main(["--out", job["gan_data"], "--size", str(GAN_SIZE),
+                       "--n_worker", "2", os.path.join(tmp, "gan_images")])
+    torch.save(job, os.path.join(tmp, "job.pt"))
+    return job
+
+
+def dist_world_of_one(card, job):
+    """(a): a world of one rank over NCCL, joined through torchrun's
+    variables by initialize_from_env: an all-reduce of a known tensor, and
+    a data_parallel GeneralizingTrainer's step-1 block at B=32 against a
+    plain trainer's, with the spread of two plain runs beside."""
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from gan2shape_torch import distributed
+    from gan2shape_torch.core.trainer import GeneralizingTrainer
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = {"MASTER_ADDR": "localhost", "MASTER_PORT": str(port),
+           "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    saved = {k: os.environ.get(k) for k in (*env, "G2S_DIST_BACKEND")}
+    os.environ.pop("G2S_DIST_BACKEND", None)
+    os.environ.update(env)
+    try:
+        check(distributed.initialize_from_env()
+              and dist.get_backend() == "nccl",
+              f"(a) torchrun's variables, world size 1: a group over "
+              f"{dist.get_backend()} on {distributed.group_device()}")
+        x = torch.arange(8, dtype=torch.float32, device=DIST_DEVICE)
+        y = x.clone()
+        dist.all_reduce(y)
+        check(torch.equal(x, y), "(a) NCCL all-reduce of arange(8) over "
+              "one rank: itself")
+        images = torch.as_tensor(job["gen_images"], device=DIST_DEVICE)
+        runs = {}
+        for name, dp in (("plain", False), ("plain again", False),
+                         ("data_parallel", True)):
+            t = GeneralizingTrainer(dist_face_config(data_parallel=dp),
+                                    seed=0)
+            if dp:
+                distributed.broadcast_(t.model.nets.parameters())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, losses = t.run_step1(images, DIST_STAGE["step1"])
+            torch.cuda.synchronize()
+            runs[name] = ([[float(v) for v in losses]],
+                          {k: v.detach().clone() for k, v in
+                           t.model.nets["albedo"].state_dict().items()},
+                          (time.perf_counter() - t0) * 1e3
+                          / DIST_STAGE["step1"], t.grouped)
+            del t
+        # the first run warms cuDNN and the caches: times from the others
+        (pl, pp, _, _), (al, ap, pms, _), (dl, dp_, dms, grouped) = (
+            runs["plain"], runs["plain again"], runs["data_parallel"])
+        spread = (curve_gap(al, pl), net_gap(ap, pp))
+        gap = (curve_gap(dl, pl), net_gap(dp_, pp))
+        lim = (GEN_LIMITS["losses"], GEN_LIMITS["nets"])
+        check(grouped and dl[0][0] == pl[0][0]
+              and all(g <= t and s <= t for g, s, t in zip(gap, spread, lim)),
+              f"(a) data_parallel step-1 block at B={DIST_IMAGES}, "
+              f"{DIST_STAGE['step1']} iterations, over the NCCL group: "
+              f"iteration-0 loss equal to the plain trainer's "
+              f"({dl[0][0]:.7f}); losses {gap[0]:.2e} and albedo nets "
+              f"{gap[1]:.2e} from it (<= {lim[0]}, {lim[1]}); two plain "
+              f"runs {spread[0]:.2e}, {spread[1]:.2e} apart")
+        print(f"TIME distributed (a) step 1 at B={DIST_IMAGES}: {dms:.2f} ms "
+              f"per iteration data_parallel over one NCCL rank, {pms:.2f} "
+              f"plain ({card})", flush=True)
+    finally:
+        distributed.shutdown()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def launch_ranks(tmp, planted=False):
+    """torchrun with DIST_RANKS ranks of this script on the one card over
+    gloo (the faults of `planted_faults` planted in them when `planted`);
+    killed with every process it started after DIST_TIMEOUT.  Returns
+    {rank: results}."""
+    import os
+    import signal
+    import socket
+
+    import torch
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, G2S_DIST_BACKEND="gloo",
+               G2S_SMOKE_PLANTED="1" if planted else "0")
+    for k in ("G2S_COORDINATOR", "G2S_NUM_PROCESSES", "G2S_PROCESS_ID",
+              "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+           "--nproc_per_node", str(DIST_RANKS), "--master_addr", "localhost",
+           "--master_port", str(port), os.path.abspath(__file__),
+           "--distributed-rank", tmp]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env,
+                            start_new_session=True)
+    try:
+        output, _ = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        output, _ = proc.communicate()
+        print(output[-6000:], flush=True)
+        check(False, f"the {DIST_RANKS} ranks finished within "
+              f"{DIST_TIMEOUT} s")
+    for line in output.splitlines():
+        if line.startswith(("RANK ", "HASH ", "PASS", "FAIL")):
+            print("  " + line, flush=True)
+    if proc.returncode != 0:
+        print(output[-6000:], flush=True)
+    check(proc.returncode == 0, f"torchrun of {DIST_RANKS} ranks exited "
+          f"{proc.returncode}")
+    return {r: torch.load(os.path.join(tmp, f"rank{r}.pt"),
+                          weights_only=False)
+            for r in range(DIST_RANKS)}
+
+
+def instance_gaps(got, want, lo):
+    """Largest gaps of a rank's instances against a run holding instance lo
+    onwards: (iteration 0 per loss (prior, steps 1-3), relative; curves,
+    as `curve_gap`; nets, absolute)."""
+    n = got["n"]
+    at = lo - want["first"]
+    w0 = want["iteration0"][:, at:at + n]
+    gap0 = ((got["iteration0"] - w0).abs() / w0.abs()).amax(1).tolist()
+    keys = ("losses_step1", "losses_step2", "losses_step3")
+    curve = curve_gap([rec[k] for rec in got["history"] for k in keys],
+                      [rec[k] for rec in want["history"][at:at + n]
+                       for k in keys])
+    net = max(net_gap(got["nets"][j], want["nets"][at + j])
+              for j in range(n))
+    return gap0, curve, net
+
+
+def fmt(xs):
+    return "/".join(f"{x:.1e}" for x in xs)
+
+
+def compare_instances(ranks, one, shares, again, card):
+    """(b): each rank's instances against one process training the same
+    share (the same shapes, so the same cuDNN algorithms) and, at
+    iteration 0, against one process of all N (whose grouped convolutions
+    of N groups sum in another order), within the fixed limits; the gap
+    of two one-process runs of rank 0's share within them too."""
+    spread = instance_gaps(again, shares[0], 0)
+    lines = [(r, instance_gaps(v["instances"], shares[r],
+                               v["instances"]["first"]),
+              instance_gaps(v["instances"], one, v["instances"]["first"]))
+             for r, v in ranks.items()]
+    print(f"INFO (b) gaps against one process of all {N_INSTANCES}: "
+          + "; ".join(f"rank {r} iteration 0 {fmt(w[0])}, curves "
+                      f"{w[1]:.2e}, nets {w[2]:.2e}" for r, _, w in lines),
+          flush=True)
+
+    def within(g):
+        return (max(g[0]) <= CARD_ITER0_TOL and g[1] <= INST_LIMITS["curves"]
+                and g[2] <= INST_LIMITS["nets"])
+
+    same = {r: {k: (v["instances"]["launches"][k], one["launches"][k])
+                for k in MAIN_PATH} for r, v in ranks.items()}
+    for r, v in ranks.items():
+        g = v["instances"]
+        print(f"TIME distributed (b) rank {r}: fit {g['fit_s']:.2f} s; ms "
+              f"per iteration " + ", ".join(f"{k} {ms:.2f}" for k, ms in
+                                           g["ms"].items())
+              + f" for its {g['n']} instances; peak {g['peak_gib']:.2f} GiB "
+              f"(two ranks share one card; {card})", flush=True)
+    print(f"TIME distributed (b) one process N={N_INSTANCES}: fit "
+          f"{one['fit_s']:.2f} s; ms per iteration "
+          + ", ".join(f"{k} {ms:.2f}" for k, ms in one["ms"].items())
+          + f"; peak {one['peak_gib']:.2f} GiB ({card})", flush=True)
+    check(within(spread) and all(within(o) and max(w[0]) <= CARD_ITER0_TOL
+                                 for _, o, w in lines)
+          and [v["instances"]["first"] for v in ranks.values()]
+          == [r * N_INSTANCES // DIST_RANKS for r in range(DIST_RANKS)]
+          and all(a == b > 0 for s in same.values() for a, b in s.values()),
+          f"(b) InstanceParallelTrainer N={N_INSTANCES} split over "
+          f"{DIST_RANKS} ranks, against one process of the same share: "
+          + "; ".join(f"rank {r} iteration 0 (prior/1/2/3) {fmt(o[0])}, "
+                      f"curves {o[1]:.2e}, nets {o[2]:.2e}"
+                      for r, o, _ in lines)
+          + f"; two one-process runs {fmt(spread[0])}, {spread[1]:.2e}, "
+          f"{spread[2]:.2e} (all <= {CARD_ITER0_TOL}, "
+          f"{INST_LIMITS['curves']}, {INST_LIMITS['nets']}); against one "
+          f"process of all {N_INSTANCES}, iteration 0 <= {CARD_ITER0_TOL}; "
+          f"launches per rank equal to one process's {same}")
+
+
+def generalizing_gaps(got, want):
+    """{stage: gap} of the losses (`curve_gap`) and of the nets after each
+    stage (absolute)."""
+    return ({k: curve_gap([v], [want["losses"][k]])
+             for k, v in got["losses"].items()},
+            {k: net_gap(v, want["nets"][k]) for k, v in got["nets"].items()})
+
+
+def compare_generalizing(ranks, one, again, card):
+    """(c): the ranks' nets bit-equal to each other; the prior's
+    iteration-0 loss (from the broadcast init) within CARD_ITER0_TOL of one
+    process's; every stage's losses and nets within the fixed limits of
+    one process's, and two one-process runs within them too."""
+    hashes = {r: v["generalizing"]["hash"] for r, v in ranks.items()}
+    by_rank = [generalizing_gaps(v["generalizing"], one)
+               for v in ranks.values()]
+    gaps = tuple({k: max(g[i][k] for g in by_rank) for k in by_rank[0][i]}
+                 for i in (0, 1))
+    spread = generalizing_gaps(again, one)
+    prior0 = max(abs(v["generalizing"]["losses"]["prior"][0]
+                     - one["losses"]["prior"][0])
+                 / abs(one["losses"]["prior"][0]) for v in ranks.values())
+
+    def show(g):
+        return ", ".join(f"{k} {v:.2e}" for k, v in g.items())
+
+    print(f"INFO (c) by stage, the ranks against one process: losses "
+          f"{show(gaps[0])}; nets {show(gaps[1])}. Two one-process runs: "
+          f"losses {show(spread[0])}; nets {show(spread[1])}", flush=True)
+    for r, v in ranks.items():
+        g = v["generalizing"]
+        share = ("" if g["collective_share"] is None else
+                 f"; collectives {100 * g['collective_share']:.1f}% of the "
+                 "block (profiler window, gloo spans)")
+        print(f"TIME distributed (c) rank {r}: step 1 {g['ms']:.2f} ms per "
+              f"iteration on its {DIST_IMAGES // DIST_RANKS} images{share}; "
+              f"peak {g['peak_gib']:.2f} GiB (two ranks share one card, gloo "
+              f"stages CUDA tensors through the host; {card})", flush=True)
+    print(f"TIME distributed (c) one process: step 1 {one['ms']:.2f} ms per "
+          f"iteration at B={DIST_IMAGES}; peak {one['peak_gib']:.2f} GiB "
+          f"({card})", flush=True)
+    worst = [max(g.values()) for g in gaps]
+    worst_spread = [max(g.values()) for g in spread]
+    lim = (GEN_LIMITS["losses"], GEN_LIMITS["nets"])
+    check(len(set(hashes.values())) == 1 and prior0 <= CARD_ITER0_TOL
+          and all(g <= t and s <= t
+                  for g, s, t in zip(worst, worst_spread, lim))
+          and all([len(v["generalizing"]["losses"][k]) for k in
+                   ("prior", *DIST_STAGE)] == [
+                       DIST_PRIOR, DIST_STAGE["step1"],
+                       DIST_STAGE["step2"] * per_image(),
+                       DIST_STAGE["step3"] * per_image()]
+                  for v in ranks.values()),
+          f"(c) data_parallel GeneralizingTrainer, B={DIST_IMAGES} split "
+          f"over {DIST_RANKS} ranks, fit's order cut to {DIST_PRIOR} prior "
+          f"iterations, a {DIST_STAGE['step1']}-iteration step-1 block and "
+          f"{per_image()} image(s)' step 2 / step 3: the ranks' nets "
+          f"bit-equal ({len(set(hashes.values()))} distinct sha256 of "
+          f"{len(hashes)}: {sorted(set(h[:16] for h in hashes.values()))}"
+          f"); against one "
+          f"process, the prior's iteration 0 {prior0:.1e} (<= "
+          f"{CARD_ITER0_TOL}), losses {worst[0]:.2e} and nets "
+          f"{worst[1]:.2e} at worst; two one-process runs {worst_spread[0]:.2e}"
+          f" and {worst_spread[1]:.2e} (all <= {lim[0]}, {lim[1]})")
+
+
+def compare_gan(ranks, one, card):
+    """(d): iteration-0 values and the gradients each step applied against
+    one process's; rank 0's checkpoints reload; iteration 0 of the
+    runs."""
+    import os
+
+    import torch
+    from gan2shape_torch.models.stylegan2_train import StyleGAN2Trainer
+
+    got = ranks[0]["gan"]
+    tol = {"d_loss": GAN_TOL, "g_loss": GAN_TOL, "r1": GAN_TOL,
+           "path": PATH_TOL}
+    rel = {r: {k: abs(v["gan"]["iteration0"][k] - one["iteration0"][k])
+               / abs(one["iteration0"][k]) for k in tol}
+           for r, v in ranks.items()}
+    grad = {k: max(v["gan"]["grad_gap"][k] for v in ranks.values())
+            for k in GAN_GRADS}
+    spread = one["grad_gap"]
+    gap = max(float((v - one["after_train_step"][net][k]).abs().max())
+              for r in ranks for net in ("generator", "discriminator")
+              for k, v in ranks[r]["gan"]["after_train_step"][net].items())
+    for r, v in ranks.items():
+        g = v["gan"]
+        share = ("" if g["collective_share"] is None else
+                 f"; collectives {100 * g['collective_share']:.1f}% of a "
+                 "train_step (profiler window, gloo spans)")
+        print(f"TIME distributed (d) rank {r}: train_gan 2 iterations "
+              f"{g['run_s']:.2f} s; train_step {g['ms']:.2f} ms on its "
+              f"{DIST_GAN_BATCH // DIST_RANKS} images{share}; peak "
+              f"{g['peak_gib']:.2f} GiB (two ranks share one card, gloo "
+              f"stages CUDA tensors through the host; {card})", flush=True)
+    print(f"TIME distributed (d) one process: train_gan 2 iterations "
+          f"{one['run_s']:.2f} s; train_step {one['ms']:.2f} ms at batch "
+          f"{DIST_GAN_BATCH}; peak {one['peak_gib']:.2f} GiB ({card})",
+          flush=True)
+    check(all(rel[r][k] <= tol[k] for r in rel for k in tol)
+          and all(g <= GAN_GRAD_TOL for g in (*grad.values(),
+                                              *spread.values()))
+          and gap <= GAN_PARAM_TOL,
+          f"(d) StyleGAN2 at {GAN_SIZE}^2, channel multiplier {GAN_CM}, "
+          f"batch {DIST_GAN_BATCH} split over {DIST_RANKS} ranks, with ADA "
+          f"at p 0.6, iteration 0 from the init against one process: "
+          + ", ".join(f"{k} {max(rel[r][k] for r in rel):.1e} (<= {tol[k]})"
+                      for k in tol)
+          + " relative; the gradients applied (Adam's first moments) "
+          + ", ".join(f"{k} {v:.1e}" for k, v in grad.items())
+          + " of one process's largest, two one-process runs "
+          + ", ".join(f"{v:.1e}" for v in spread.values())
+          + f" (<= {GAN_GRAD_TOL}); parameters "
+          f"after train_step {gap:.2e} apart (<= 2 lr = {GAN_PARAM_TOL:.2e})")
+    ckpts = [r["gan"]["checkpoints"] for r in ranks.values()]
+    reloaded = StyleGAN2Trainer(GAN_SIZE, channel_multiplier=GAN_CM,
+                                use_augment=True, seed=1)
+    path = os.path.join(got["run_dir"], "checkpoint", "000001.pt")
+    it, _ = reloaded.load_checkpoint(path)
+    saved = torch.load(path, map_location="cpu", weights_only=False)
+    equal = all(torch.equal(v.cpu(), saved[k][n])
+                for k, mod in (("g", reloaded.generator),
+                               ("d", reloaded.discriminator),
+                               ("g_ema", reloaded.g_ema))
+                for n, v in mod.state_dict().items())
+    first = {k: (got["log"][0][k], one["log"][0][k]) for k in ("d", "g")}
+    check(ckpts[0] == ["000000.pt", "000001.pt"] and not any(ckpts[1:])
+          and it == 1 and equal
+          and all(abs(a - b) <= GAN_TOL * abs(b) for a, b in first.values()),
+          f"(d) tools.train_gan --distributed, 2 iterations: rank 0 wrote "
+          f"{ckpts[0]}, the other ranks nothing; its last checkpoint "
+          f"reloads (iteration {it}, state bit-equal); iteration 0's d and "
+          f"g {first} against one process")
+
+
+def run_distributed(card, planted=False):
+    """Phase 12: (a) in this process over NCCL; the one-process runs of
+    (b)-(d); then DIST_RANKS ranks on the card through torchrun over gloo,
+    each held against them.  Returns each rank's launch counts in (b).
+    With `planted`, the ranks carry `planted_faults()` and (a) is skipped:
+    the checks of the planted faults must fail, and only those."""
+    import gc
+    import os
+    import tempfile
+    from pathlib import Path
+
+    import torch
+    from gan2shape_torch.distributed import Mesh
+
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    os.makedirs(root / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        job = dist_job(tmp)
+        if not planted:
+            dist_world_of_one(card, job)
+        one = {}
+        dist_instances(job, one)
+        shares = {}
+        for r in [*range(DIST_RANKS), "again"]:
+            dist_instances(job, shares, Mesh(DIST_RANKS, 0 if r == "again"
+                                             else r), key=r, timed=False)
+        dist_generalizing(job, one, False)
+        dist_generalizing(job, one, False, key="generalizing again")
+        dist_gan(job, one)
+        torch.save(one["gan"].pop("grads"), os.path.join(tmp, "gan_grads.pt"))
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = launch_ranks(tmp, planted)
+        ranks_s = time.perf_counter() - t0
+        failed = {}
+        for name, compare, args in (
+                ("(b)", compare_instances, (one["instances"], shares,
+                                            shares.pop("again"))),
+                ("(c)", compare_generalizing, (one["generalizing"],
+                                               one["generalizing again"])),
+                ("(d)", compare_gan, (one["gan"],))):
+            try:
+                compare(ranks, *args, card)
+            except Failed as exc:  # report every check after a failed one
+                failed[name] = str(exc)
+    print(f"TIME distributed phase: {time.perf_counter() - t_phase:.2f} s "
+          f"wall, the {DIST_RANKS} ranks' launch {ranks_s:.2f} s of it "
+          f"({card})", flush=True)
+    if planted:
+        names = planted_faults()
+        want = sorted({FAULTS[f] for f in names})
+        check(sorted(failed) == want,
+              f"planted faults {names}: the checks that failed {sorted(failed)}"
+              f", those of the faults {want}")
+    elif failed:
+        raise Failed("; ".join(failed.values()))
+    return {r: v["instances"]["launches"] for r, v in ranks.items()}
+
+
 def main(argv):
     import torch
 
+    if len(argv) == 2 and argv[0] == "--distributed-rank":
+        return dist_rank_main(argv[1])
     kernels_only = argv == ["--kernels"]
     precision_only = argv == ["--precision"]
-    if argv and not (kernels_only or precision_only):
-        print(f"usage: python3 chip_smoke.py [--kernels | --precision] "
-              f"(got {argv})")
+    planted = argv == ["--distributed-planted"]
+    distributed_only = argv == ["--distributed"] or planted
+    if argv and not (kernels_only or precision_only or distributed_only):
+        print(f"usage: python3 chip_smoke.py [--kernels | --precision | "
+              f"--distributed | --distributed-planted] (got {argv})")
         return 2
     if not torch.cuda.is_available():
         print("FAIL no CUDA device: this smoke run needs one GPU",
@@ -2350,6 +3189,8 @@ def main(argv):
         check_window(results)
         if precision_only:
             run_precision(card)
+        elif distributed_only:
+            run_distributed(card, planted)
         elif not kernels_only:
             check_raster_gradients()
             check_launches = run_check_path(results)
@@ -2360,6 +3201,7 @@ def main(argv):
             inst_launches = run_instances(card, launches, step_ms)
             gan = run_gan_side(card)
             run_precision(card)
+            rank_launches = run_distributed(card)
     except Failed:
         return 1
     except RuntimeError as exc:  # a timing that found no device activity
@@ -2367,7 +3209,8 @@ def main(argv):
         return 1
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        if kernels_only or precision_only:  # no main path: no launch counts
+        if kernels_only or precision_only or distributed_only:
+            # no main path: no launch counts
             if name in results:
                 kernels.append({"name": name, "source": source,
                                 "launches": None, **results[name]})
@@ -2387,6 +3230,8 @@ def main(argv):
             extra["launches_generalizing_step1"] = gen_launches[name]
             extra[f"launches_{N_INSTANCES}_instances"] = inst_launches[name]
             extra["launches_gan_side"] = gan["launches"][name]
+            extra[f"launches_{N_INSTANCES}_instances_per_rank"] = [
+                rank_launches[r][name] for r in sorted(rank_launches)]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         **results[name], **extra})

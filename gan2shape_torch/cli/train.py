@@ -15,23 +15,33 @@ reference assets (StyleGAN2 checkpoint, VGG16 and LPIPS heads, view / light
 MVN) load from the config's paths; a missing file leaves seeded random
 weights, with a warning.
 
-`--n-instances K` trains the first min(K, len(data)) images at once on the
-one device (`parallel.InstanceParallelTrainer`), with the instance schedule
-and priors from the default prior generator.
+`--n-instances K` trains the first min(K, len(data)) images at once
+(`parallel.InstanceParallelTrainer`), with the instance schedule and priors
+from the default prior generator.
 
-`--device` defaults to CUDA and there is no CPU fallback: a missing GPU is an
-error (`--device cpu` runs on the CPU on purpose).  Multi-host training
-(`--distributed`) is not ported (ROADMAP A9) and is refused.
+Over several processes (`--distributed`, or the G2S_* / torchrun
+variables: `gan2shape_torch/distributed.py`), `--n-instances K` splits the
+K instances over the ranks (K must divide by their number) and
+`--generalize` honours the config's `data_parallel`; the sequential
+branch is refused, since every rank would train every image over the
+others' checkpoints:
+
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m gan2shape_torch.cli.train --distributed --n-instances 8 ...
+
+`--device` defaults to CUDA (a rank's own device under a process group) and
+there is no CPU fallback: a missing GPU is an error (`--device cpu` runs on
+the CPU on purpose, the ranks over gloo).
 """
 
 import argparse
 import logging
-import os
 import sys
 import time
 from os import path
 
 from gan2shape_torch.device import resolve_device
+from gan2shape_torch import distributed
 from gan2shape_torch.utils.config import create_results_folder, load_config
 
 log = logging.getLogger(__name__)
@@ -41,7 +51,6 @@ INSTANCE_STAGES = [{"step1": 700, "step2": 700, "step3": 600},
                    {"step1": 200, "step2": 500, "step3": 400},
                    {"step1": 200, "step2": 500, "step3": 400}]
 GENERALIZING_STAGES = [{"step1": 13, "step2": 22, "step3": 18}]
-_MULTIHOST_ENV = ("G2S_COORDINATOR", "G2S_NUM_PROCESSES", "G2S_PROCESS_ID")
 
 
 def parse_args(argv=None):
@@ -63,11 +72,14 @@ def parse_args(argv=None):
                         default=None, nargs="+")
     parser.add_argument("--n-instances", dest="N_INSTANCES", type=int,
                         default=0,
-                        help="train this many images at once on the one "
-                             "device (0: one after another)")
+                        help="train this many images at once, split "
+                             "over the ranks (0: one after another)")
     parser.add_argument("--distributed", dest="DISTRIBUTED",
                         action="store_true",
-                        help="multi-host training: not ported (ROADMAP A9)")
+                        help="join a process group (coordinates from "
+                             "torchrun or G2S_COORDINATOR/"
+                             "G2S_NUM_PROCESSES/G2S_PROCESS_ID; the "
+                             "variables alone also ask for it)")
     parser.add_argument("--device", dest="DEVICE", default=None,
                         help="torch device (default: cuda, which must be "
                              "present)")
@@ -78,21 +90,32 @@ def instance_parallel(args):
     return args.N_INSTANCES > 0 and not args.GENERALIZE
 
 
+def sequential(args):
+    return not args.GENERALIZE and not instance_parallel(args)
+
+
 def refuse_unported(args):
-    """Multi-host runs are refused, never ignored: the env vars of the JAX
-    package's multi-host runtime count as asking.  So is a resume of
-    instances trained at once, which the JAX package ignores."""
+    """Refused, never ignored: a resume of instances trained at once,
+    which the JAX package ignores, and the sequential branch over several
+    ranks, where the JAX package would train every image on every host."""
     if instance_parallel(args) and args.LOAD_PRETRAINED:
         raise NotImplementedError(
             "--load-pretrained resumes sequential or --generalize runs, not "
             "--n-instances ones")
-    env = [k for k in _MULTIHOST_ENV if os.environ.get(k)]
-    if os.environ.get("G2S_MULTIHOST") == "1":
-        env.append("G2S_MULTIHOST")
-    if args.DISTRIBUTED or env:
+    if sequential(args) and (args.DISTRIBUTED
+                             or distributed.world_size() > 1):
         raise NotImplementedError(
-            f"multi-host training (--distributed or {env}) is not ported "
-            "yet (ROADMAP A9)")
+            "the sequential trainer runs in one process: over several "
+            "ranks use --n-instances or --generalize")
+
+
+def join_group(args):
+    """Join the process group the flags or the environment ask for, then
+    apply the refusals; before any side effect."""
+    refuse_unported(args)
+    distributed.initialize_from_env(device=args.DEVICE,
+                                    required=args.DISTRIBUTED)
+    refuse_unported(args)
 
 
 def config_from_args(args):
@@ -111,7 +134,7 @@ def build_trainer(config, args):
     from gan2shape_torch.convert.reference import build_frozen_assets
     from gan2shape_torch.core.trainer import GeneralizingTrainer2, Trainer
 
-    refuse_unported(args)
+    join_group(args)
     load_dict = None
     if args.LOAD_PRETRAINED:
         load_dict = {"category": config.get("category"),
@@ -132,7 +155,7 @@ def run(config, args, stages=None):
     the schedule of the mode).  Returns (trainer, history)."""
     from gan2shape_torch.core.dataset import ImageLatentDataset
 
-    refuse_unported(args)  # before any side effect
+    join_group(args)  # before any side effect
     resolve_device(args.DEVICE)
     category = config.get("category")
     if args.WANDB:
@@ -164,10 +187,11 @@ def run(config, args, stages=None):
 
 
 def run_instances(config, args, images_latents, stages):
-    """main.py's --n-instances branch on one device: the first
-    min(K, len(data)) images, their priors from the trainer's default prior
-    generator (the segmentation masker when a parsing checkpoint exists),
-    trained at once.  Returns (trainer, history)."""
+    """main.py's --n-instances branch: the first min(K, len(data)) images,
+    their priors from the trainer's default prior generator (the
+    segmentation masker when a parsing checkpoint exists), trained at once,
+    each rank's share on its device.  Returns (trainer, the history of
+    this rank's instances)."""
     import numpy as np
 
     from gan2shape_torch.convert.reference import build_frozen_assets
@@ -193,7 +217,7 @@ def main(argv=None):
     logging.basicConfig(
         filename=args.LOG_FILE,
         format="%(asctime)s %(levelname)-8s %(message)s", level=logging.INFO)
-    refuse_unported(args)
+    join_group(args)
     resolve_device(args.DEVICE)  # before the config and the data
     run(config_from_args(args), args)
 

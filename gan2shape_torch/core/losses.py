@@ -3,9 +3,17 @@ feature matching.
 
 The batch axis holds `n` independent instances in contiguous groups of
 equal size, and each loss is the (n,) vector of the per-instance losses;
-n = 1, the default, is one loss over the whole batch."""
+n = 1, the default, is one loss over the whole batch.
+
+A batch split into equal slices over the ranks of a process group gives
+each rank a share of each loss whose mean over the ranks is the whole
+batch's loss: the means are the slice's own (equal counts), and the
+masked mean, whose mask sums differ from slice to slice, takes its
+denominator over the group (`split`)."""
 
 import torch
+
+from gan2shape_torch.distributed import all_reduce_sum, world_size
 
 EPS = 1e-7
 
@@ -15,20 +23,27 @@ def instance_mean(x, n=1):
     return x.reshape(n, -1).mean(1)
 
 
-def masked_mean(x, mask, n=1):
-    """The (n,) sum(x * mask) / sum(mask) of x's n leading-axis groups."""
+def masked_mean(x, mask, n=1, split=False):
+    """The (n,) sum(x * mask) / sum(mask) of x's n leading-axis groups.
+    With `split`, x is this rank's slice of a batch split over the process
+    group: its share is W sum(x * mask) over the whole batch's mask sum."""
     mask = mask.expand_as(x)
-    return ((x * mask).reshape(n, -1).sum(1)
-            / torch.clamp_min(mask.reshape(n, -1).sum(1), EPS))
+    num = (x * mask).reshape(n, -1).sum(1)
+    den = mask.reshape(n, -1).sum(1)
+    if split:
+        den = all_reduce_sum(den)
+        num = num * world_size()
+    return num / torch.clamp_min(den, EPS)
 
 
-def photometric_loss(image1, image2, mask=None, conf_sigma=None, n=1):
+def photometric_loss(image1, image2, mask=None, conf_sigma=None, n=1,
+                     split=False):
     loss = torch.abs(image1 - image2)
     if conf_sigma is not None:
         loss = (loss * 2 ** 0.5 / (conf_sigma + EPS)
                 + torch.log(conf_sigma + EPS))
     if mask is not None:
-        return masked_mean(loss, mask, n)
+        return masked_mean(loss, mask, n, split)
     return instance_mean(loss, n)
 
 

@@ -17,6 +17,14 @@ the (N,) vector of per-instance losses, step 2's and step 3's per-instance
 draws and samples are contiguous groups, and nothing takes a statistic
 across instances.  The default N = 1 is one problem over the whole batch,
 with a (1,) loss.
+
+Ranks.  Over a process group, a model may hold instances [first, first + N)
+of `total` (`instance_range`, set by `InstanceParallelTrainer`): its step-2
+draws are then those of all `total` instances, from one stream, of which
+it keeps its own, so that W ranks repeat one process's run.  And step 1's
+batch may be one rank's slice of a batch split over a group
+(`batch_split`, set by `GeneralizingTrainer`): its masked L1 then takes its
+mask sum over the whole batch (core/losses.py).
 """
 
 import math
@@ -146,6 +154,8 @@ class GAN2Shape(nn.Module):
             m.requires_grad_(False)
         self.mean_latent = None
         self.n_instances = 1
+        self.instance_range = None  # (first, total) over ranks
+        self.batch_split = False    # step 1's batch split over the ranks
 
         border = np.zeros((1, s, s), np.float32)
         border[:, :, :2] = 1.02  # the reference's literal pad value
@@ -324,7 +334,8 @@ class GAN2Shape(nn.Module):
         recon_im = torch.clamp(grid_sample(texture, inv["grid"]), -1.0, 1.0)
         mask = inv["recon_mask"]
         n = self.n_instances
-        loss_l1 = photometric_loss(recon_im, images, mask=mask, n=n)
+        loss_l1 = photometric_loss(recon_im, images, mask=mask, n=n,
+                                   split=self.batch_split)
         loss_perc = instance_mean(self.lpips(recon_im * mask, images * mask),
                                   n)
         loss = (loss_l1 + self.lam_perc * loss_perc
@@ -337,22 +348,27 @@ class GAN2Shape(nn.Module):
     def sample_pseudo_imgs(self, generator, n_images, normal, light_a,
                            light_b, albedo, depth):
         """`n_images` pseudo samples of each instance's first image under
-        random lights and views (instance-major, one draw for all)."""
+        random lights and views (instance-major, one draw for all: with an
+        `instance_range`, for all its instances, of which this model's are
+        kept)."""
         h = w = self.image_size
         dev = depth.device
         total = self.n_instances * n_images
+        first, n_all = self.instance_range or (0, self.n_instances)
+        own = slice(first * n_images, first * n_images + total)
         x_min, x_max, y_min, y_max, d_min, d_max, alpha = self.rand_light
         lo = torch.tensor([x_min, y_min], device=dev)
         hi = torch.tensor([x_max, y_max], device=dev)
-        dxy = lo + torch.rand(total, 2, generator=generator,
-                              device=dev) * (hi - lo)
+        dxy = lo + torch.rand(n_all * n_images, 2, generator=generator,
+                              device=dev)[own] * (hi - lo)
         light_d = torch.cat([dxy, dxy.new_ones((total, 1))], 1)
         light_d = light_d / torch.sqrt(torch.sum(light_d ** 2, 1,
                                                  keepdim=True))
         rand_diffuse_shading = self._diffuse(self._each(normal, n_images),
                                              light_d)
-        rand = d_min + torch.rand(total, 1, 1, 1, generator=generator,
-                                  device=dev) * (d_max - d_min)
+        rand = d_min + torch.rand(n_all * n_images, 1, 1, 1,
+                                  generator=generator,
+                                  device=dev)[own] * (d_max - d_min)
         rand_diffuse = (self._each(light_b, n_images).reshape(-1, 1, 1, 1)
                         + rand) * rand_diffuse_shading
         rand_shading = (self._each(light_a, n_images).reshape(-1, 1, 1, 1)
@@ -361,7 +377,8 @@ class GAN2Shape(nn.Module):
                          * rand_shading * 2 - 1)
 
         mask = torch.ones((total, 3, h, w), device=dev)
-        views = self.view_light_sampler.sample(generator, total, "view")
+        views = self.view_light_sampler.sample(generator, n_all * n_images,
+                                               "view")[own]
         pseudo, mask = self.renderer.render_given_view(
             rand_light_im, self._each(depth, n_images),
             self.get_view_transformation(views), mask=mask)

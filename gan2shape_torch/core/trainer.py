@@ -21,6 +21,7 @@ import torch
 from gan2shape_torch.core.checkpoint import CheckpointManager, load_nets
 from gan2shape_torch.core.model import GAN2Shape
 from gan2shape_torch.core.priors import PriorGenerator
+from gan2shape_torch import distributed
 
 log = logging.getLogger(__name__)
 
@@ -276,7 +277,7 @@ class Trainer:
         return history
 
     def _wandb(self):
-        if not self.log_wandb:
+        if not self.log_wandb or distributed.rank() != 0:
             return None
         try:
             import wandb
@@ -307,15 +308,72 @@ class GeneralizingTrainer(Trainer):
     per epoch, for each batch of `batch_size` images, step 1 runs batched
     and steps 2 and 3 run per image on slices of step 1's collected state.
     Only the first stage of a schedule is used.  A checkpoint with image ""
-    is saved on epochs where epoch % 20 == 0."""
+    is saved on epochs where epoch % 20 == 0.
+
+    Data parallelism over ranks (`mesh`, the process group's, or
+    `data_parallel: true` for `distributed.make_mesh()`): the nets are
+    broadcast from rank 0 when `fit` starts; the batched prior and step 1
+    split the image batch over the ranks when it divides by their number
+    and run whole on every rank otherwise; steps 2 and 3 run per image on
+    every rank.  Every gradient, of split and of replicated steps, is
+    averaged over the ranks before the optimizer step, so every rank makes
+    the same update (the splat's atomics make replicated gradients differ
+    in their last bits).  Rank 0 writes the checkpoints."""
 
     def __init__(self, model_config, mesh=None, **kw):
-        if mesh is not None or model_config.get("data_parallel", False):
-            raise NotImplementedError(
-                "data-parallel generalizing training (a mesh, "
-                "data_parallel: true) is not ported yet (ROADMAP A9)")
+        if mesh is None and model_config.get("data_parallel", False):
+            mesh = distributed.make_mesh()
+        if mesh is not None and kw.get("device") is None:
+            kw["device"] = mesh.device
+        self.mesh = mesh
+        self.grouped = distributed.group_mesh(mesh)  # collectives run
         super().__init__(model_config, **kw)
         self.n_epochs = model_config.get("n_epochs_generalized", 1)
+
+    # ---------------- data parallelism ----------------
+
+    def _rows(self, n):
+        """The rows of an n-image batch this rank computes, or None: no
+        split (one rank, or n not divisible by the ranks)."""
+        if not self.grouped or n % self.mesh.size:
+            return None
+        return distributed.local_slice(n)
+
+    def _step(self, loss, optimizer):
+        """The Trainer's update with the gradients averaged over the ranks
+        (zeros for a parameter the loss did not reach, which stays without
+        a gradient)."""
+        if not self.grouped:
+            return super()._step(loss, optimizer)
+        self.model.zero_grad(set_to_none=True)
+        loss.sum().backward()
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        distributed.all_reduce_mean_(grads)
+        optimizer.step()
+
+    def run_prior(self, images, priors, n_iters):
+        rows = self._rows(images.shape[0])
+        if rows is None:
+            return super().run_prior(images, priors, n_iters)
+        # a split step's losses averaged: the whole batch's
+        return distributed.mean_over_ranks(
+            super().run_prior(images[rows], priors[rows], n_iters))
+
+    def run_step1(self, images, n_iters):
+        """Step 1 on this rank's slice of the batch; the collected state of
+        the whole batch, gathered from the ranks, for steps 2 and 3."""
+        rows = self._rows(images.shape[0])
+        if rows is None:
+            return super().run_step1(images, n_iters)
+        self.model.batch_split = True
+        try:
+            collected, losses = super().run_step1(images[rows], n_iters)
+        finally:
+            self.model.batch_split = False
+        return (tuple(distributed.gather_rows_of(collected)),
+                distributed.mean_over_ranks(losses))
 
     def fit(self, images_latents, stages=None, batch_size=2, shuffle=False):
         stage = (stages or [{"step1": 1, "step2": 1, "step3": 1}])[0]
@@ -336,6 +394,8 @@ class GeneralizingTrainer(Trainer):
                                  ).reshape(n, self.image_size,
                                            self.image_size)
 
+        if self.grouped:
+            distributed.broadcast_(self.model.nets.parameters())
         if self.load_dict is None and self.n_epochs_prior > 0:
             losses = self.run_prior(images, priors, self.n_epochs_prior)
             log.info("prior pretrain done: %.3e", float(losses[-1]))
@@ -374,7 +434,8 @@ class GeneralizingTrainer(Trainer):
                 history[-1]["losses_step1"] = l1
             log.info("epoch %d: %.4f/%.4f/%.4f", epoch, _last(l1),
                      _last(l2), _last(l3))
-            if epoch % 20 == 0 and self.save_ckpts:
+            if epoch % 20 == 0 and self.save_ckpts and \
+                    distributed.rank() == 0:
                 self.ckpt.save(self.model.nets, "", epoch, total_it,
                                self.category)
         log.info("finished training")

@@ -326,6 +326,12 @@ def apply_color(img, mat):
     return out + mat_add[:, :, None, None]
 
 
+def sample_inverse_affine(gen, p, size, height, width):
+    """The inverse geometric transforms `augment` applies."""
+    # inv_ex does not synchronise with the host to check for errors
+    return torch.linalg.inv_ex(sample_affine(gen, p, size, height, width))[0]
+
+
 def augment(gen, img, p, transforms=None):
     """Geometric then colour augmentation, each transform applied with
     probability `p` (a float or a 0-d tensor).  `transforms` = (G, C) replays
@@ -336,9 +342,7 @@ def augment(gen, img, p, transforms=None):
     if transforms is not None:
         G, C = transforms
     if G is None:
-        # inv_ex does not synchronise with the host to check for errors
-        G = torch.linalg.inv_ex(sample_affine(gen, p, b, img.shape[2],
-                                              img.shape[3]))[0]
+        G = sample_inverse_affine(gen, p, b, img.shape[2], img.shape[3])
     if C is None:
         C = sample_color(gen, p, b)
     img = apply_affine(img, G)

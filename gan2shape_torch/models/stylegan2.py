@@ -23,6 +23,7 @@ from gan2shape_torch.ops.fused_act import (
     fused_leaky_relu, inverse_fused_leaky_relu,
 )
 from gan2shape_torch.ops.upfirdn2d import setup_filter, upfirdn2d
+from gan2shape_torch.distributed import gather_rows, local_slice
 from gan2shape_torch.utils.precision import act_dtype
 
 
@@ -441,9 +442,13 @@ class Discriminator(nn.Module):
             EqualLinear(chans[4] * 16, chans[4], activation="fused_lrelu"),
             EqualLinear(chans[4], 1))
 
-    def forward(self, x, ftr_num=100):
+    def forward(self, x, ftr_num=100, split_batch=False):
         """Returns (score or 0, feature taps after every block but the
-        first, stopping once `ftr_num` taps are collected)."""
+        first, stopping once `ftr_num` taps are collected).  With
+        `split_batch`, x is this rank's equal slice of a batch split over
+        the process group, and the minibatch standard deviation is the
+        whole batch's (its groups strided over the whole batch, as on one
+        device)."""
         out = x.to(act_dtype())
         features = []
         for i, block in enumerate(self.convs):
@@ -452,14 +457,25 @@ class Discriminator(nn.Module):
                 features.append(out.float())
             if len(features) >= ftr_num:
                 return x.new_zeros(()), features
+        if not split_batch:
+            stddev = self._minibatch_stddev(out)
+        else:
+            # the rows of every rank, gathered differentiably: a rank's
+            # features get the gradient of every rank's loss through them
+            full = gather_rows(out)
+            stddev = self._minibatch_stddev(full)[local_slice(full.shape[0])]
+        out = self.final_conv(torch.cat([out, stddev], 1))
+        features.append(out.float())
+        out = self.final_linear(out.reshape(out.shape[0], -1))
+        return out.float(), features
+
+    def _minibatch_stddev(self, out):
+        """(B, stddev_feat, h, w): the feature standard deviation over
+        groups of min(B, stddev_group) samples strided B / group apart."""
         batch, channel, height, width = out.shape
         group = min(batch, self.stddev_group)
         stddev = out.reshape(group, -1, self.stddev_feat,
                              channel // self.stddev_feat, height, width)
         stddev = torch.sqrt(stddev.var(0, unbiased=False) + 1e-8)
         stddev = stddev.mean((2, 3, 4), keepdim=True).squeeze(2)
-        stddev = stddev.repeat(group, 1, height, width)
-        out = self.final_conv(torch.cat([out, stddev], 1))
-        features.append(out.float())
-        out = self.final_linear(out.reshape(batch, -1))
-        return out.float(), features
+        return stddev.repeat(group, 1, height, width)

@@ -1,5 +1,5 @@
 """StyleGAN2 adversarial training: the JAX package's StyleGAN2Trainer in
-PyTorch, on one device.
+PyTorch, on one device or data-parallel over the ranks of a process group.
 
   * non-saturating logistic losses;
   * lazy R1 on the (augmented) reals every `d_reg_every` steps, weight
@@ -21,6 +21,17 @@ only through the path-length term; fresh per-sample noise goes into every
 synthesis.  Randomness comes from one `torch.Generator` on the device
 (`self.rng`), drawn by `_mixed_latent`, `_fresh_noise`, `_maybe_augment`
 and `_path_noise`; tests replace those on an instance to inject inputs.
+
+Data parallelism (`mesh`: the process group's W ranks,
+`distributed.make_mesh()`): each rank
+takes an equal slice of the real batch; the latents, noise and
+augmentation parameters of the whole batch are drawn on every rank from
+the same generator and each keeps its rows; the discriminator's minibatch
+standard deviation is the whole batch's; gradients are averaged over the
+ranks before each Adam step and the metrics are the whole batch's (the
+sign sum summed over the ranks), so every rank holds the same G, D, EMA
+and Adam state as one process would.  The path-length step runs the same
+small batch on every rank (its gradients averaged too).
 """
 
 import copy
@@ -31,9 +42,12 @@ import torch
 import torch.nn.functional as F
 
 from gan2shape_torch.device import resolve_device
-from gan2shape_torch.models.augment import augment
+from gan2shape_torch.models.augment import (
+    augment, sample_color, sample_inverse_affine,
+)
 from gan2shape_torch.models.layers import reset_parameters
 from gan2shape_torch.models.stylegan2 import Discriminator, Generator
+from gan2shape_torch import distributed
 
 
 def d_logistic_loss(real_pred, fake_pred):
@@ -63,7 +77,11 @@ class StyleGAN2Trainer:
     def __init__(self, size, style_dim=512, n_mlp=8, channel_multiplier=2,
                  lr=2e-3, r1_weight=10.0, d_reg_every=16, g_reg_every=4,
                  mixing=0.9, path_regularize=2.0, path_batch_shrink=2,
-                 use_augment=False, seed=0, device=None):
+                 use_augment=False, seed=0, device=None, mesh=None):
+        self.grouped = distributed.group_mesh(mesh)  # collectives run
+        self.world = mesh.size if self.grouped else 1
+        if device is None and mesh is not None:
+            device = mesh.device
         self.device = resolve_device(device)
         self.size = size
         self.style_dim = style_dim
@@ -126,9 +144,15 @@ class StyleGAN2Trainer:
                            w1[:, None, :])
 
     def _maybe_augment(self, img, ada_p):
+        """`img` (this rank's rows) through transforms drawn for the whole
+        batch."""
         if not self.use_augment:
             return img
-        return augment(self.rng, img, ada_p)[0]
+        b, _, h, w = img.shape
+        G = sample_inverse_affine(self.rng, ada_p, b * self.world, h, w)
+        C = sample_color(self.rng, ada_p, b * self.world)
+        return augment(self.rng, img, ada_p,
+                       (self._own(G), self._own(C)))[0]
 
     def _path_noise(self, shape):
         """The unit-normal image the path-length Jacobian is applied to."""
@@ -136,18 +160,36 @@ class StyleGAN2Trainer:
 
     # ---------------- pieces ----------------
 
+    def _own(self, x):
+        """This rank's rows of a whole-batch draw."""
+        return x[distributed.local_slice(x.shape[0])] if self.grouped else x
+
+    def _whole_batch_draws(self, g, batch):
+        """Latents and noise of the whole batch (`batch` rows a rank), this
+        rank's rows."""
+        latent = self._own(self._mixed_latent(g, batch * self.world))
+        noise = [self._own(n) for n in self._fresh_noise(batch * self.world)]
+        return latent, noise
+
+    def _mean_over_ranks(self, values):
+        """0-d tensors averaged over the ranks (one collective)."""
+        if not self.grouped:
+            return values
+        return distributed.mean_over_ranks(values)
+
     @staticmethod
     def _synth(g, latent, noise):
         img, _ = g([latent], noise, input_is_w=True)
         return img
 
-    @staticmethod
-    def _update(optim, params, grads):
-        """One optimizer step on `grads`; a parameter the loss did not reach
-        gets a zero gradient, so that every Adam step count advances (as
-        optax's do)."""
+    def _update(self, optim, params, grads):
+        """One optimizer step on `grads` averaged over the ranks; a
+        parameter the loss did not reach gets a zero gradient, so that
+        every Adam step count advances (as optax's do)."""
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
+        if self.grouped:
+            distributed.all_reduce_mean_([p.grad for p in params])
         optim.step()
         for p in params:
             p.grad = None
@@ -173,35 +215,36 @@ class StyleGAN2Trainer:
     def d_step(self, real, ada_p=0.0):
         """The D half of `train_step`."""
         g, d = self.generator, self.discriminator
-        b = real.shape[0]
         with torch.no_grad():
-            fake = self._synth(g, self._mixed_latent(g, b),
-                               self._fresh_noise(b))
+            fake = self._synth(g, *self._whole_batch_draws(g, real.shape[0]))
             real_aug = self._maybe_augment(real, ada_p)
             fake_aug = self._maybe_augment(fake, ada_p)
-        real_pred, _ = d(real_aug)
-        fake_pred, _ = d(fake_aug)
+        real_pred, _ = d(real_aug, split_batch=self.grouped)
+        fake_pred, _ = d(fake_aug, split_batch=self.grouped)
         d_loss = d_logistic_loss(real_pred, fake_pred)
         d_params = list(d.parameters())
         self._update(self.d_optim, d_params,
                      torch.autograd.grad(d_loss, d_params))
-        return {"d_loss": d_loss.detach(),
-                "real_score": real_pred.detach().mean(),
-                "fake_score": fake_pred.detach().mean(),
-                "real_sign_sum": torch.sign(real_pred.detach()).sum()}
+        # the sign sum as a mean over the ranks times W: exact for integers
+        values = self._mean_over_ranks([
+            d_loss.detach(), real_pred.detach().mean(),
+            fake_pred.detach().mean(), torch.sign(real_pred.detach()).sum()])
+        return {"d_loss": values[0], "real_score": values[1],
+                "fake_score": values[2],
+                "real_sign_sum": values[3] * self.world}
 
     def g_step(self, batch, ada_p=0.0):
         """The G half of `train_step` (without the EMA); returns the loss."""
         g, d = self.generator, self.discriminator
         with torch.no_grad():
-            latent = self._mixed_latent(g, batch)
-        fake = self._synth(g, latent, self._fresh_noise(batch))
-        fake_pred, _ = d(self._maybe_augment(fake, ada_p))
+            latent, noise = self._whole_batch_draws(g, batch)
+        fake = self._synth(g, latent, noise)
+        fake_pred, _ = d(self._maybe_augment(fake, ada_p), split_batch=self.grouped)
         g_loss = g_nonsaturating_loss(fake_pred)
         g_params = list(g.parameters())
         self._update(self.g_optim, g_params, torch.autograd.grad(
             g_loss, g_params, allow_unused=True))
-        return g_loss.detach()
+        return self._mean_over_ranks([g_loss.detach()])[0]
 
     # ---------------- lazy R1 ----------------
 
@@ -210,7 +253,7 @@ class StyleGAN2Trainer:
         r1/2 * d_reg_every.  Returns the penalty."""
         d = self.discriminator
         real = real.detach().requires_grad_(True)
-        pred, _ = d(self._maybe_augment(real, ada_p))
+        pred, _ = d(self._maybe_augment(real, ada_p), split_batch=self.grouped)
         grad_real, = torch.autograd.grad(pred.sum(), real, create_graph=True)
         r1 = torch.sum(grad_real ** 2) / real.shape[0]
         loss = (self.r1_weight / 2) * r1 * self.d_reg_every
@@ -218,7 +261,7 @@ class StyleGAN2Trainer:
         # biases after the minibatch-stddev layer do not reach R1
         self._update(self.d_optim, d_params, torch.autograd.grad(
             loss, d_params, allow_unused=True))
-        return r1.detach()
+        return self._mean_over_ranks([r1.detach()])[0]
 
     # ---------------- lazy path length ----------------
 
@@ -226,7 +269,7 @@ class StyleGAN2Trainer:
         """Path-length regularisation on `batch` samples (default
         max(1, 2 // path_batch_shrink), the JAX trainer's): the norm of the
         latent-to-image Jacobian applied to white noise scaled 1/sqrt(hw),
-        pulled toward its running mean."""
+        pulled toward its running mean.  The same samples on every rank."""
         batch = batch or max(1, 2 // self.path_batch_shrink)
         g = self.generator
         noise = self._fresh_noise(batch)

@@ -1,5 +1,6 @@
-"""Instance-parallel training on one device: N image instances, each with
-its own five trainable nets, optimised at once.
+"""Instance-parallel training: N image instances, each with its own five
+trainable nets, optimised at once on one device, or split over the ranks
+of a process group (N / W on each).
 
 Each net's parameters are stacked on a leading instance axis
 (`StackedNets`) and mapped over a batch of N contiguous groups with
@@ -13,8 +14,13 @@ slice of a stacked parameter gets exactly its own instance's gradient; Adam
 is elementwise and all instances step together, so one Adam over the
 stacked tensors is N independent Adams.
 
-The JAX package shards the instance axis over a device mesh; here the N
-instances share one device, and a mesh is refused (ROADMAP A9).
+The JAX package shards the instance axis over a device mesh; here over
+the ranks of `mesh` (`distributed.make_mesh()`: the current process
+group, one device a rank, launched by torchrun).  Rank r trains instances
+[r N / W, (r + 1) N / W) with no collective at all: every rank draws the
+nets of all N instances and step 2's samples of all N from the same seeded
+generators and keeps its own, so W ranks repeat the one-process run of the
+same N.  Checkpoints and `evaluate` cover the rank's own instances.
 """
 
 import copy
@@ -28,6 +34,7 @@ from torch.func import functional_call, vmap
 
 from gan2shape_torch.core.model import GAN2Shape
 from gan2shape_torch.core.trainer import Trainer, _last
+from gan2shape_torch.distributed import make_mesh
 
 log = logging.getLogger(__name__)
 
@@ -95,7 +102,8 @@ class StackedNets(nn.ModuleDict):
 
 
 class InstanceParallelTrainer(Trainer):
-    """Train N instances at once on one device.
+    """Train N instances at once, split over the ranks of `mesh` (default
+    `make_mesh()`: the process group, or this process alone).
 
     Usage:
         t = InstanceParallelTrainer(config, n_instances=8)
@@ -107,28 +115,37 @@ class InstanceParallelTrainer(Trainer):
     as the trainer's model with its frozen nets as they are; `frozen`, a
     GAN2Shape, lends its frozen nets, mean latent and view/light sampler.
     Step 2's samples come from one device generator (seed + 1) drawing
-    all N * n_proj_samples at once."""
+    all N * n_proj_samples at once.  `n` is this rank's number of
+    instances, `n_total` N."""
 
     def __init__(self, model_config, n_instances, frozen=None, seed=0,
                  model=None, save_ckpts=False, device=None, mesh=None):
-        several = isinstance(device, (list, tuple)) and len(device) > 1
-        if mesh is not None or several:
-            raise NotImplementedError(
-                "instances over a mesh or several devices are not ported "
-                "yet (ROADMAP A9): the N instances share one device")
         if isinstance(device, (list, tuple)):
+            if len(device) > 1:
+                raise NotImplementedError(
+                    "several devices in one process: run one process per "
+                    "device with torchrun (python -m torch.distributed.run "
+                    "--nproc_per_node K ...), whose ranks split the "
+                    "instances")
             device = device[0]
         if n_instances < 1:
             raise ValueError("n_instances must be >= 1")
-        self.n = n_instances
+        self.mesh = mesh if mesh is not None else make_mesh()
+        if n_instances % self.mesh.size:
+            raise ValueError(f"{n_instances} instances do not divide over "
+                             f"{self.mesh.size} ranks")
+        self.n_total = n_instances
+        self.n = n_instances // self.mesh.size
+        self.first = self.mesh.rank * self.n
         self.given_model, self.frozen_source = model, frozen
         super().__init__(model_config, save_ckpts=save_ckpts, seed=seed,
-                         device=device)
+                         device=device if device is not None
+                         else self.mesh.device)
 
     def _init_model(self, device, init):
         """Instance 0's nets, then the frozen nets (unless lent or given),
-        then instances 1..N-1's, all from `init`; the trainable nets
-        stacked."""
+        then instances 1..N-1's, all from `init`; this rank's instances'
+        nets stacked."""
         self.model = self.given_model if self.given_model is not None \
             else GAN2Shape(self.config, device=device)
         instances = [self._fresh_nets(init)]
@@ -136,9 +153,12 @@ class InstanceParallelTrainer(Trainer):
             self._share_frozen(self.frozen_source)
         elif self.given_model is None:
             self.model.init_frozen(init)
-        instances += [self._fresh_nets(init) for _ in range(1, self.n)]
-        self.model.nets = StackedNets(instances).to(self.model.device)
+        instances += [self._fresh_nets(init)
+                      for _ in range(1, self.n_total)]
+        own = instances[self.first:self.first + self.n]
+        self.model.nets = StackedNets(own).to(self.model.device)
         self.model.n_instances = self.n
+        self.model.instance_range = (self.first, self.n_total)
 
     def _fresh_nets(self, generator):
         self.model.init_params(generator)
@@ -157,26 +177,35 @@ class InstanceParallelTrainer(Trainer):
             return np.zeros((self.n, 0), np.float32)
         return torch.stack(losses, 1).detach().cpu().numpy()
 
+    def _own(self, x):
+        """This rank's rows of an N-row sequence."""
+        return x[self.first:self.first + self.n]
+
     def _batch(self, x):
+        """This rank's instances of an (N, ...) array, on the device."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        if x.shape[0] != self.n:
-            raise ValueError(f"expected a leading axis of {self.n} "
+        if x.shape[0] != self.n_total:
+            raise ValueError(f"expected a leading axis of {self.n_total} "
                              f"instances, got {tuple(x.shape)}")
-        return x
+        return self._own(x)
 
     # ---------------- training ----------------
 
     def fit(self, images, latents, priors=None, stages=None,
             reset_opt=False, data_indices=None):
         """images (N, 3, H, W), latents (N, D), priors (N, H, W) (or None:
-        no prior pretraining).  The Adam states carry across calls unless
-        `reset_opt`.  `data_indices` names the instances in the history
-        and the checkpoints (default 0..N-1).  Returns one record per
-        (instance, stage) with the sequential Trainer's keys and the full
-        loss curves."""
+        no prior pretraining), all N instances on every rank.  The Adam
+        states carry across calls unless `reset_opt`.  `data_indices` names
+        the instances in the history and the checkpoints (default
+        0..N-1).  Returns one record per (instance of this rank, stage)
+        with the sequential Trainer's keys and the full loss curves."""
         stages = stages or [{"step1": 1, "step2": 1, "step3": 1}]
         if data_indices is None:
-            data_indices = list(range(self.n))
+            data_indices = list(range(self.n_total))
+        if len(data_indices) != self.n_total:
+            raise ValueError(f"{len(data_indices)} data indices for "
+                             f"{self.n_total} instances")
+        data_indices = self._own(list(data_indices))
         images = self._batch(images)
         latents = self._batch(latents).reshape(self.n, -1)
         if priors is not None and self.n_epochs_prior > 0:
@@ -211,11 +240,13 @@ class InstanceParallelTrainer(Trainer):
 
     def save_checkpoints(self, data_indices, stage, total_it):
         """Per-instance checkpoints in the sequential Trainer's format:
-        one manifest and five .pth files per image."""
+        one manifest and five .pth files per image of this rank
+        (`data_indices`, one per instance of the rank)."""
         for j, idx in enumerate(data_indices):
             self.ckpt.save(self.model.nets.instance(j), idx, stage, total_it,
                            self.category)
 
     def evaluate(self, images):
-        """(recon_im (N, 3, H, W), recon_depth (N, H, W))."""
+        """(recon_im (n, 3, H, W), recon_depth (n, H, W)) of this rank's
+        n instances, from the images (N, 3, H, W) of all N."""
         return self.model.evaluate_results(self._batch(images))

@@ -1,4 +1,5 @@
-"""Train a StyleGAN2 on a prepared image cache, on one device.
+"""Train a StyleGAN2 on a prepared image cache, on one device or
+data-parallel over the ranks of a process group.
 
 The JAX package's tools/train_gan.py with its flags and schedule: lazy R1
 every --d_reg_every iterations, path-length regularisation every
@@ -15,6 +16,16 @@ data draws of the iterations before are replayed from --seed.
         --size 256 images/
     python -m gan2shape_torch.tools.train_gan data/gan_cache --size 256 \\
         --batch 16 --augment
+
+Over W ranks (`--distributed`, or the G2S_* / torchrun variables, see
+`gan2shape_torch/distributed.py`), each rank loads and trains on batch / W
+of the batch; the batch must divide by W (the JAX tool takes the largest
+divisor of the batch among its devices instead).  Every rank draws the same data
+indices and flips from --seed, rank 0 writes the samples and checkpoints,
+and every rank resumes from --ckpt:
+
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m gan2shape_torch.tools.train_gan data/gan_cache --distributed
 """
 
 import argparse
@@ -76,6 +87,12 @@ def parse_args(argv=None):
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: CUDA, which must be "
                              "present)")
+    parser.add_argument("--distributed", action="store_true",
+                        help="train data-parallel over the ranks of a "
+                             "process group (coordinates from torchrun or "
+                             "G2S_COORDINATOR / G2S_NUM_PROCESSES / "
+                             "G2S_PROCESS_ID; the variables alone also "
+                             "ask for it)")
     return parser.parse_args(argv)
 
 
@@ -84,9 +101,19 @@ def run(args):
     from gan2shape_torch.core.dataset import MultiResolutionDataset
     from gan2shape_torch.models.augment import AdaptiveAugment
     from gan2shape_torch.models.stylegan2_train import StyleGAN2Trainer
+    from gan2shape_torch import distributed
+
+    distributed.initialize_from_env(device=args.device,
+                                    required=args.distributed)
+    mesh = distributed.make_mesh()
+    if args.batch % mesh.size:
+        raise ValueError(f"--batch {args.batch} does not split over "
+                         f"{mesh.size} ranks")
+    rows = distributed.local_slice(args.batch)
+    lead = mesh.rank == 0
 
     wandb = None
-    if args.wandb:
+    if args.wandb and lead:
         try:
             import wandb
             wandb.init(project="stylegan 2")
@@ -101,16 +128,20 @@ def run(args):
         g_reg_every=args.g_reg_every, mixing=args.mixing,
         path_regularize=args.path_regularize,
         path_batch_shrink=args.path_batch_shrink,
-        use_augment=args.augment, seed=args.seed, device=args.device)
+        use_augment=args.augment, seed=args.seed, device=args.device,
+        mesh=mesh)
     dataset = MultiResolutionDataset(args.path, resolution=args.size)
-    print(f"dataset: {len(dataset)} images @ {args.size}px on "
-          f"{trainer.device}")
+    if lead:
+        print(f"dataset: {len(dataset)} images @ {args.size}px on "
+              f"{trainer.device}; {mesh.size} rank(s), "
+              f"{args.batch // mesh.size} samples each")
 
     start_iter = 0
     ada_p = args.augment_p
     ada = AdaptiveAugment(args.ada_target, args.ada_length, 8)
     if args.ckpt is not None:
-        print("load model:", args.ckpt)
+        if lead:
+            print("load model:", args.ckpt)
         last, saved_p = trainer.load_checkpoint(args.ckpt)
         start_iter = last + 1
         if args.augment_p == 0:
@@ -129,7 +160,7 @@ def run(args):
     for i in range(start_iter, args.iter):
         idx = rng.integers(0, len(dataset), args.batch)
         flip = rng.random(args.batch) < 0.5
-        real = dataset.get_batch(idx, flip).to(trainer.device)
+        real = dataset.get_batch(idx[rows], flip[rows]).to(trainer.device)
 
         metrics = trainer.train_step(real, ada_p)
         if args.augment and args.augment_p == 0:
@@ -147,7 +178,7 @@ def run(args):
                "g": float(metrics["g_loss"]), "r1": r1_val,
                "path": path_val, "mean_path": mean_path, "augment": ada_p}
         log.append(rec)
-        if i % 10 == 0:
+        if i % 10 == 0 and lead:
             print(f"iter {i}: d: {rec['d']:.4f}; g: {rec['g']:.4f}; "
                   f"r1: {r1_val:.4f}; path: {path_val:.4f}; mean path: "
                   f"{mean_path:.4f}; augment: {ada_p:.4f}", flush=True)
@@ -159,12 +190,12 @@ def run(args):
                        "Real Score": float(metrics["real_score"]),
                        "Fake Score": float(metrics["fake_score"])})
 
-        if i % args.sample_every == 0:
+        if i % args.sample_every == 0 and lead:
             sample = trainer.sample_ema(sample_z)
             save_grid(sample.cpu().numpy(),
                       os.path.join(args.out_dir, "sample",
                                    f"{str(i).zfill(6)}.png"))
-        if i % args.ckpt_every == 0:
+        if i % args.ckpt_every == 0 and lead:
             trainer.save_checkpoint(
                 os.path.join(args.out_dir, "checkpoint",
                              f"{str(i).zfill(6)}.pt"),

@@ -407,20 +407,28 @@ def test_assets_reject_unknown_entries(assets, tmp_path):
 
 # ---------------- refusals ----------------
 
-@pytest.mark.parametrize("argv, env", [
-    (["--distributed"], {}),
-    ([], {"G2S_COORDINATOR": "localhost:1234"}),
-    ([], {"G2S_MULTIHOST": "1"})])
+@pytest.mark.parametrize("argv, env, exc, match", [
+    (["--distributed"], {}, NotImplementedError, "sequential"),
+    ([], {"G2S_COORDINATOR": "localhost:1234"}, RuntimeError,
+     "partial multi-host"),
+    ([], {"G2S_MULTIHOST": "1"}, RuntimeError, "without coordinates")])
 def test_train_refuses_multi_instance_and_multi_host(tmp_path, monkeypatch,
-                                                     argv, env):
-    """Multi-host runs stay refused (ROADMAP A9); `--n-instances` on one
-    device trains (tests/test_torch_instances.py)."""
+                                                     argv, env, exc, match):
+    """Multi-process runs the port cannot honour are refused before any
+    work: `--distributed` on the sequential branch (every rank would train
+    every image), a partial G2S_* environment (JAX's error), and
+    G2S_MULTIHOST=1 without coordinates (no pod autodetection in torch).
+    The multi-process branches themselves: tests/test_torch_distributed.py."""
     monkeypatch.chdir(tmp_path)
+    for k in ("G2S_COORDINATOR", "G2S_NUM_PROCESSES", "G2S_PROCESS_ID",
+              "G2S_MULTIHOST", "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+              "RANK"):
+        monkeypatch.delenv(k, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     args = t_train.parse_args(["--category", "face", "--device", "cpu"]
                               + argv)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(exc, match=match):
         t_train.run(dict(SMALL, category="face"), args)
     assert not (tmp_path / "results").exists()  # refused before any work
 

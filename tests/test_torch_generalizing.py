@@ -30,6 +30,7 @@ from gan2shape_tpu.core.model import GAN2Shape as JGAN2Shape
 
 from gan2shape_torch.core import trainer as t_trainer
 from gan2shape_torch.core.checkpoint import CheckpointManager, NETS
+from gan2shape_torch.distributed import make_mesh
 
 S = 64
 CFG = {
@@ -202,12 +203,25 @@ def test_resume_loads_the_checkpoint_and_skips_the_prior(fitted):
     assert np.isfinite(hist[-1]["loss_step1"])
 
 
-@pytest.mark.parametrize("mesh, cfg", [(object(), {}),
+@pytest.mark.parametrize("mesh, cfg", [(make_mesh(), {}),
                                        (None, {"data_parallel": True})])
 def test_data_parallel_is_refused(mesh, cfg):
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_trainer.GeneralizingTrainer(dict(CFG, **cfg), mesh=mesh,
-                                      device="cpu")
+    """No longer refused: without a process group, a `make_mesh()` record
+    and `data_parallel: true` are one rank, whose run is the plain
+    trainer's, bit for bit.  Over ranks: tests/test_torch_distributed.py."""
+    stages = [{"step1": 1, "step2": 0, "step3": 0}]
+    data = _data(np.random.default_rng(2), 2)
+    runs = []
+    for kw in ({"mesh": mesh, "cfg": cfg}, {"mesh": None, "cfg": {}}):
+        tt = t_trainer.GeneralizingTrainer(dict(CFG, n_epochs_prior=1,
+                                                **kw["cfg"]),
+                                           mesh=kw["mesh"], device="cpu")
+        runs.append((tt, tt.fit(data, stages=stages, batch_size=2)))
+    (dp, got), (plain, want) = runs
+    assert dp.mesh.size == 1 and not dp.grouped and plain.mesh is None
+    np.testing.assert_equal(got, want)  # NaN: no step-2/3 iteration
+    for k, v in plain.model.nets.state_dict().items():
+        assert torch.equal(dp.model.nets.state_dict()[k], v), k
 
 
 # ---------------- pseudo_pool_every ----------------

@@ -62,7 +62,8 @@ def test_port_import_loads_no_jax_module():
         "gan2shape_torch.core.masking\n"
         "import gan2shape_torch.utils.config, gan2shape_torch.utils.plotting\n"
         "import gan2shape_torch.models.segmentation, "
-        "gan2shape_torch.parallel, gan2shape_torch.parallel.sharding\n"
+        "gan2shape_torch.parallel, gan2shape_torch.parallel.sharding, "
+        "gan2shape_torch.distributed\n"
         "import gan2shape_torch.native, gan2shape_torch.projector, "
         "gan2shape_torch.models.augment, "
         "gan2shape_torch.models.stylegan2_train\n"

@@ -36,6 +36,7 @@ from gan2shape_torch.core import masking as t_masking
 from gan2shape_torch.core.trainer import Trainer
 from gan2shape_torch.models.segmentation import BiSeNet
 from gan2shape_torch.parallel import InstanceParallelTrainer
+from gan2shape_torch.distributed import Mesh
 from gan2shape_torch.utils import config as t_config
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -348,11 +349,16 @@ def t_evaluate_image(root, i):
     return ImageDataset(str(root / "data" / "face"), image_size=S)[i]
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()},
-                                {"device": ["cpu", "cpu"]}])
-def test_a_mesh_or_several_devices_are_refused(kw):
-    with pytest.raises(NotImplementedError, match="A9"):
-        InstanceParallelTrainer(CFG, N, **kw)
+@pytest.mark.parametrize("n, kw, exc, match", [
+    (3, {"mesh": Mesh(2, 0, torch.device("cpu"))}, ValueError,
+     "do not divide over 2 ranks"),
+    (N, {"device": ["cpu", "cpu"]}, NotImplementedError, "torchrun")])
+def test_a_mesh_or_several_devices_are_refused(n, kw, exc, match):
+    """Instances split over the ranks of a process group
+    (tests/test_torch_distributed.py), so N must divide by their number;
+    several devices in one process stay refused, pointing to torchrun."""
+    with pytest.raises(exc, match=match):
+        InstanceParallelTrainer(CFG, n, **kw)
 
 
 def test_cli_refuses_a_resume_of_instances(tmp_path, monkeypatch):
