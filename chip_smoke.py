@@ -108,7 +108,21 @@ Phases, each of which must pass:
      spread of two one-process runs to the same limits; TIME distributed
      lines (ms per iteration per rank, the collectives' share from a
      profiler window on rank 0, peak memory per rank);
-  13. one JSON line describing every kernel, the card line again, and last
+  13. the tools (gan2shape_torch/tools): `bench` at full width (a warm-up
+     and 2 timed blocks of 25/25/25, its JSON line re-printed as a BENCH
+     line, every kernel of the main path launched, counts zeroed before and
+     read after), `bench --instances N_INSTANCES` at 5 iterations a step;
+     `full_instance_run` on a cut schedule (prior 20 + {5, 5, 5}, two
+     instances); `check_pool_every --fast --floor` with K 1 and 2 (K=1
+     run again for the floor that K=2's depth-MAD is read against: POOL
+     lines); `bench_raster` and `chain_raster` at 128², B=16 on the
+     pseudo-sample inputs (`raster_mega` against `dense_winner` exactly
+     1); `run_real_assets` in an empty root (exit 2, every file listed),
+     then --fast over seeded random release files written in the
+     reference's layout (each read, a written port checkpoint giving the
+     depth-MAD); FULL_RUN.json, POOL_EVERY_CHECK.json and RUN_REAL.json
+     hashed before and after, unchanged;
+  14. one JSON line describing every kernel, the card line again, and last
      {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Kernel builds and run
@@ -132,7 +146,11 @@ phases 1-3 and 12;
 
 phases 1-3 and 12 without (a), with faults planted in the ranks
 (FAULTS: G2S_SMOKE_PLANT names them, default draws,unaveraged,stddev):
-the checks of the planted faults must fail, and only those.
+the checks of the planted faults must fail, and only those;
+
+    python3 chip_smoke.py --tools
+
+phases 1-3 and 13.
 """
 
 import json
@@ -1863,6 +1881,24 @@ def run_gan_side(card):
     return {**launched, "lpips_ms": lpips_ms}
 
 
+def write_reference_lpips(trunk_path, heads_path, seed):
+    """Random LPIPS-VGG weights in the reference files' layout: the VGG16
+    trunk as torchvision's `features.*` (from `seed`) and the lpips v0.1
+    heads (from seed + 1)."""
+    import torch
+    from gan2shape_torch.models.layers import reset_parameters
+    from gan2shape_torch.models.lpips import LPIPS
+
+    net = LPIPS()
+    reset_parameters(net, torch.Generator().manual_seed(seed))
+    sd = net.state_dict()
+    torch.save({k[4:]: v for k, v in sd.items() if k.startswith("vgg.")},
+               trunk_path)
+    heads = torch.Generator().manual_seed(seed + 1)
+    torch.save({k: torch.rand(v.shape, generator=heads)
+                for k, v in sd.items() if k.startswith("lin")}, heads_path)
+
+
 def gan_on_the_card(root, card):
     """The GAN side's user path on the card, in a temporary folder, then
     the step times."""
@@ -1876,8 +1912,6 @@ def gan_on_the_card(root, card):
     from gan2shape_torch.convert.reference import load_gan_checkpoint
     from gan2shape_torch.core.dataset import MultiResolutionDataset
     from gan2shape_torch.core.model import GAN2Shape
-    from gan2shape_torch.models.layers import reset_parameters
-    from gan2shape_torch.models.lpips import LPIPS
     from gan2shape_torch.models.stylegan2_train import StyleGAN2Trainer
     from gan2shape_torch.ops import _cuda
     from gan2shape_torch.tools import generate, prepare_data, project, \
@@ -2004,18 +2038,9 @@ def gan_on_the_card(root, card):
                   f"generate: 2 batches of 4 at truncation 0.7 in "
                   f"{time.perf_counter() - t0:.2f} s, latents finite")
 
-            # random LPIPS-VGG weights in the reference files' layout
             os.makedirs("lpips")
-            net = LPIPS()
-            reset_parameters(net, torch.Generator().manual_seed(16))
-            sd = net.state_dict()
-            torch.save({k[4:]: v for k, v in sd.items()
-                        if k.startswith("vgg.")},
-                       os.path.join("lpips", "vgg16.pth"))
-            heads = torch.Generator().manual_seed(17)
-            torch.save({k: torch.rand(v.shape, generator=heads)
-                        for k, v in sd.items() if k.startswith("lin")},
-                       os.path.join("lpips", "vgg.pth"))
+            write_reference_lpips(os.path.join("lpips", "vgg16.pth"),
+                                  os.path.join("lpips", "vgg.pth"), seed=16)
             files = [os.path.join("samples", "000000.png"),
                      os.path.join("samples", "000005.png")]
             steps_ms = []
@@ -3144,6 +3169,311 @@ def run_distributed(card, planted=False):
     return {r: v["instances"]["launches"] for r, v in ranks.items()}
 
 
+# ---------------- phase 13: the tools ----------------
+
+# files of the JAX tools that the port's tools must never write
+TRACKED_JSONS = ("FULL_RUN.json", "POOL_EVERY_CHECK.json", "RUN_REAL.json")
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline"}
+TOOLS_BENCH_BLOCKS = 2     # timed blocks after the warm-up (the CLI's: 4)
+TOOLS_INSTANCE_ITERS = 5   # --instances N_INSTANCES (the CLI's: 15)
+TOOLS_PRIOR = 20           # full_instance_run cut to prior 20 + {5, 5, 5}
+TOOLS_STAGES = [{"step1": 5, "step2": 5, "step3": 5}]
+TOOLS_POOL_KS = ["1", "2"]
+FULL_RUN_KEYS = {"schedule", "total_optimization_steps", "first_instance_s",
+                 "steady_state_instance_s", "steady_state_steps_per_sec",
+                 "north_star_s", "meets_north_star", "final_losses",
+                 "device"}
+
+
+def tracked_hashes(root):
+    import hashlib
+
+    out = {}
+    for name in TRACKED_JSONS:
+        path = root / name
+        out[name] = (hashlib.sha256(path.read_bytes()).hexdigest()
+                     if path.exists() else None)
+    return out
+
+
+def quietly(fn, *args, **kw):
+    """(fn's result, the lines it printed on stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args, **kw)
+    return result, buf.getvalue().splitlines()
+
+
+def run_tools(card):
+    """Phase 13: the port's measurement and study tools, each through its
+    entry point, with the JAX tools' tracked JSONs hashed before and
+    after.  Returns the launch counts of the bench's blocks."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    before = tracked_hashes(root)
+    t_phase = time.perf_counter()
+    os.makedirs(root / "build", exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=root / "build") as tmp:
+        launches = tools_bench(card)
+        tools_full_run(tmp, card)
+        tools_pool_every(tmp)
+        tools_raster(card)
+        tools_real_assets(tmp)
+    after = tracked_hashes(root)
+    check(after == before, f"the JAX tools' {', '.join(TRACKED_JSONS)} "
+          f"unchanged by the port's tools (SHA-256 {after})")
+    print(f"TIME tools phase: {time.perf_counter() - t_phase:.2f} s wall "
+          f"({card})", flush=True)
+    return launches
+
+
+def bench_line(lines, metric):
+    """The bench's one stdout line, parsed and checked."""
+    result = json.loads(lines[0]) if len(lines) == 1 else {}
+    check(set(result) == BENCH_KEYS and result["metric"] == metric
+          and math.isfinite(result["value"]) and result["value"] > 0,
+          f"bench printed one JSON line on stdout: {lines}")
+    print(f"BENCH {lines[0]}", flush=True)
+    return result
+
+
+def tools_bench(card):
+    import torch
+    from gan2shape_torch.ops import _cuda
+    from gan2shape_torch.tools import bench
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    _, lines = quietly(bench.main, n_blocks=TOOLS_BENCH_BLOCKS)
+    bench_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    bench_line(lines, bench.STEPS_METRIC)
+    missing = [k for k in MAIN_PATH if launches[k] == 0]
+    check(not missing, f"tools.bench: a warm-up and {TOOLS_BENCH_BLOCKS} "
+          f"timed blocks of 25/25/25 in {bench_s:.2f} s, every kernel of "
+          f"the main path launched (launches {launches}, none missing: "
+          f"{missing})")
+    torch.cuda.empty_cache()
+
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    _, lines = quietly(bench.bench_instances, N_INSTANCES,
+                       n_iters=TOOLS_INSTANCE_ITERS)
+    inst_s = time.perf_counter() - t0
+    bench_line(lines, bench.INSTANCES_METRIC.format(k=N_INSTANCES))
+    inst = dict(_cuda.LAUNCHES)
+    missing = [k for k in MAIN_PATH if inst[k] == 0]
+    check(not missing, f"tools.bench --instances {N_INSTANCES} at "
+          f"{TOOLS_INSTANCE_ITERS} iterations a step in {inst_s:.2f} s, "
+          f"every kernel of the main path launched (launches {inst})")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tools_full_run(tmp, card):
+    import os
+
+    from gan2shape_torch.tools import full_instance_run as F
+
+    out = os.path.join(tmp, "full_run_torch.json")
+    result, _ = quietly(F.main, ["--out", out], prior=TOOLS_PRIOR,
+                        stages=TOOLS_STAGES)
+    with open(out) as f:
+        saved = json.load(f)
+    n = TOOLS_PRIOR + sum(sum(s.values()) for s in TOOLS_STAGES)
+    check(saved == result and set(saved) == FULL_RUN_KEYS
+          and saved["total_optimization_steps"] == n
+          and saved["schedule"] == F.schedule_name(TOOLS_PRIOR,
+                                                   TOOLS_STAGES)
+          and saved["steady_state_instance_s"] > 0
+          and all(math.isfinite(v) for v in saved["final_losses"].values())
+          and len(saved["final_losses"]) == 3 and saved["device"] == card,
+          f"tools.full_instance_run on a cut schedule ({saved['schedule']}, "
+          f"{n} steps) twice: first {saved['first_instance_s']} s, steady "
+          f"{saved['steady_state_instance_s']} s, losses "
+          f"{saved['final_losses']}, device {saved['device']!r}; its JSON "
+          f"where --out says")
+
+
+def tools_pool_every(tmp):
+    import os
+
+    from gan2shape_torch.tools import check_pool_every as C
+
+    out = os.path.join(tmp, "pool_every_check_torch.json")
+    t0 = time.perf_counter()
+    (code, results, _), _ = quietly(
+        C.main, ["--fast", "--ks", *TOOLS_POOL_KS, "--floor", "--out", out])
+    study_s = time.perf_counter() - t0
+    with open(out) as f:
+        saved = json.load(f)
+    entry, floor = saved["ks"]["2"], saved["floor"]
+    check(saved == json.loads(json.dumps(results)) and saved["fast"]
+          and code == (0 if saved["ok"] else 1)
+          and math.isfinite(entry["depth_mad_vs_base"])
+          and math.isfinite(floor["depth_mad_vs_base"])
+          and all(math.isfinite(entry[s]["tail_rel_dev"]) for s in C.STEPS),
+          f"tools.check_pool_every --fast --ks 1 2 --floor in "
+          f"{study_s:.2f} s: its JSON where --out says, exit code {code}")
+    print(f"POOL K=2 against K=1: depth MAD {entry['depth_mad_vs_base']:.3e}"
+          f" (p95 {entry['depth_p95_vs_base']:.3e}); floor, K=1 run twice: "
+          f"{floor['depth_mad_vs_base']:.3e} (p95 "
+          f"{floor['depth_p95_vs_base']:.3e}); bound {C.DEPTH_MAD_BOUND}",
+          flush=True)
+    for step in C.STEPS:
+        print(f"POOL {step}: tail deviation K=2 {entry[step]['tail_rel_dev']}"
+              f" (floor {floor['tail_rel_dev'][step]}, bound "
+              f"{C.MAX_TAIL_DEV[step]}), pass {entry[step]['pass']}",
+              flush=True)
+    print(f"POOL verdict: ok {saved['ok']}, recommended_default "
+          f"{saved['recommended_default']}; wall {saved['wall_s']} s "
+          f"(a K inside the floor is not a finding)", flush=True)
+
+
+def tools_raster(card):
+    from gan2shape_torch.tools import bench_raster, chain_raster
+
+    result = bench_raster.run(128, 16)
+    check(result["agreement"] == 1.0
+          and all(math.isfinite(v) and v > 0 for v in result["ms"].values())
+          and result["device"] == card,
+          f"tools.bench_raster at 128^2, B=16: raster_mega against "
+          f"dense_winner agreement {result['agreement']:.5f} (exactly 1), "
+          f"{len(result['ms'])} passes timed")
+    for impl in chain_raster.IMPLS:
+        r = chain_raster.per_call(impl, 20, 128, 16)
+        check(math.isfinite(r["ms_per_call"]),
+              f"tools.chain_raster --impl {impl}: {r['ms_per_call']:.4f} ms "
+              f"a call (t[{r['n_small']}] {r['t_small_ms']:.3f} ms, "
+              f"t[{r['n_big']}] {r['t_big_ms']:.3f} ms; {card})")
+
+
+def write_reference_assets(root, seed):
+    """Seeded random release files of the face category in the reference's
+    layout under `root` (the StyleGAN2 checkpoint, VGG16, the LPIPS heads,
+    the view / light MVNs, a data/face set of one image) and a trained
+    checkpoint of the port's format under checkpoints/our_nets."""
+    import os
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+    from gan2shape_torch.core.checkpoint import CheckpointManager
+    from gan2shape_torch.core.model import GAN2Shape
+    from gan2shape_torch.tools.run_real_assets import GAN_CKPTS
+    from gan2shape_torch.utils.config import load_config
+
+    repo = Path(__file__).resolve().parent
+    config = load_config(category="face", config_dir=str(repo / "configs"),
+                         minimal_config=str(repo / "minimal_config.yml"))
+    write_face_set(root, 1, config["image_size"], seed)
+    model = GAN2Shape(config, device="cpu")
+    init = torch.Generator().manual_seed(seed)
+    model.init_params(init)
+    model.init_frozen(init)
+    for sub in ("stylegan2", "view_light", "vgg", "lpips"):
+        os.makedirs(os.path.join(root, "checkpoints", sub))
+    torch.save({"g_ema": model.generator.state_dict(),
+                "d": model.discriminator.state_dict()},
+               os.path.join(root, GAN_CKPTS["face"]))
+    write_reference_lpips(
+        os.path.join(root, "checkpoints", "vgg", "vgg16.pth"),
+        os.path.join(root, "checkpoints", "lpips", "vgg.pth"), seed + 1)
+    rng = np.random.default_rng(seed)
+    for name, n in (("view_mvn.pth", 6), ("light_mvn.pth", 4)):
+        a = rng.standard_normal((n, n)).astype(np.float32)
+        torch.save({"mean": torch.from_numpy(
+                        0.1 * rng.standard_normal(n).astype(np.float32)),
+                    "cov": torch.from_numpy(0.01 * (a @ a.T / n + 0.1 * np.eye(
+                        n, dtype=np.float32)))},
+                   os.path.join(root, "checkpoints", "view_light", name))
+    CheckpointManager(os.path.join(root, "checkpoints", "our_nets")).save(
+        model.nets, 0, 0, 1, "face")
+
+
+class LogLines:
+    """The messages one logger emits inside a with block."""
+
+    def __init__(self, name):
+        import logging
+
+        self.logger = logging.getLogger(name)
+        self.lines = []
+        self.handler = logging.Handler()
+        self.handler.emit = lambda record: self.lines.append(
+            record.getMessage())
+
+    def __enter__(self):
+        import logging
+
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def tools_real_assets(tmp):
+    import os
+
+    import numpy as np
+    from gan2shape_torch.tools import run_real_assets as R
+
+    empty = os.path.join(tmp, "empty")
+    os.makedirs(empty)
+    code, lines = quietly(R.main, ["--root", empty, "--fast"])
+    summary = os.path.join(empty, "build", "run_real_torch.json")
+    with open(summary) as f:
+        blocked = json.load(f)
+    wanted = [p for p, _ in R.required_assets("face")]
+    check(code == 2 and all(any(p in line for line in lines)
+                            for p in wanted)
+          and blocked == {"ok": False, "skipped": True, "category": "face",
+                          "missing": wanted}
+          and sorted(os.listdir(empty)) == ["build"],
+          f"tools.run_real_assets in an empty root: exit {code}, the "
+          f"{len(wanted)} missing files listed, the summary skipped")
+
+    assets = os.path.join(tmp, "assets")
+    t0 = time.perf_counter()
+    write_reference_assets(assets, seed=20)
+    written_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with LogLines("gan2shape_torch.convert.reference") as log:
+        code, _ = quietly(R.main, ["--root", assets, "--fast"])
+    run_s = time.perf_counter() - t0
+    out_dir = os.path.join(assets, "results", "real_assets", "face")
+    with open(os.path.join(out_dir, "REAL_ASSETS.json")) as f:
+        result = json.load(f)
+    with open(os.path.join(assets, "build", "run_real_torch.json")) as f:
+        summary = json.load(f)
+    depth = np.load(os.path.join(out_dir, "depth.npy"))
+    mad = result.get("depth_mad_vs_reference_ckpt")
+    loaded = [line for line in log if line.startswith("loaded")]
+    check(code == 0 and summary == {"ok": True, "skipped": False, **result}
+          and depth.shape == (128, 128) and np.isfinite(depth).all()
+          and result["depth_stats"]["finite"]
+          and all(math.isfinite(v) for v in result["final_losses"].values())
+          and isinstance(mad, float) and math.isfinite(mad)
+          and len(loaded) == 2 and not any("not found" in line
+                                           for line in log),
+          f"tools.run_real_assets --fast over random reference-layout files "
+          f"(written in {written_s:.2f} s): exit {code} in {run_s:.2f} s, "
+          f"fit {result['wall_s']} s, depth {depth.shape} in "
+          f"[{depth.min():.4f}, {depth.max():.4f}], losses "
+          f"{result['final_losses']}, depth-MAD against the written "
+          f"checkpoint {mad}; files read: {loaded}")
+
+
 def main(argv):
     import torch
 
@@ -3153,9 +3483,12 @@ def main(argv):
     precision_only = argv == ["--precision"]
     planted = argv == ["--distributed-planted"]
     distributed_only = argv == ["--distributed"] or planted
-    if argv and not (kernels_only or precision_only or distributed_only):
+    tools_only = argv == ["--tools"]
+    if argv and not (kernels_only or precision_only or distributed_only
+                     or tools_only):
         print(f"usage: python3 chip_smoke.py [--kernels | --precision | "
-              f"--distributed | --distributed-planted] (got {argv})")
+              f"--distributed | --distributed-planted | --tools] (got "
+              f"{argv})")
         return 2
     if not torch.cuda.is_available():
         print("FAIL no CUDA device: this smoke run needs one GPU",
@@ -3191,6 +3524,8 @@ def main(argv):
             run_precision(card)
         elif distributed_only:
             run_distributed(card, planted)
+        elif tools_only:
+            run_tools(card)
         elif not kernels_only:
             check_raster_gradients()
             check_launches = run_check_path(results)
@@ -3202,6 +3537,7 @@ def main(argv):
             gan = run_gan_side(card)
             run_precision(card)
             rank_launches = run_distributed(card)
+            bench_launches = run_tools(card)
     except Failed:
         return 1
     except RuntimeError as exc:  # a timing that found no device activity
@@ -3209,7 +3545,7 @@ def main(argv):
         return 1
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        if kernels_only or precision_only or distributed_only:
+        if kernels_only or precision_only or distributed_only or tools_only:
             # no main path: no launch counts
             if name in results:
                 kernels.append({"name": name, "source": source,
@@ -3232,6 +3568,7 @@ def main(argv):
             extra["launches_gan_side"] = gan["launches"][name]
             extra[f"launches_{N_INSTANCES}_instances_per_rank"] = [
                 rank_launches[r][name] for r in sorted(rank_launches)]
+            extra["launches_bench"] = bench_launches[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         **results[name], **extra})

@@ -1,1 +1,2 @@
-"""Command-line checks of the port (run with `python -m`)."""
+"""Command-line tools of the port (run with `python -m`): the checks, the
+benchmarks and studies, and the GAN side's data, training and sampling."""

@@ -70,6 +70,14 @@ def test_port_import_loads_no_jax_module():
         "import gan2shape_torch.tools.prepare_data, "
         "gan2shape_torch.tools.train_gan, gan2shape_torch.tools.generate, "
         "gan2shape_torch.tools.project\n"
+        "import gan2shape_torch.tools.bench, "
+        "gan2shape_torch.tools.full_instance_run, "
+        "gan2shape_torch.tools.check_pool_every, "
+        "gan2shape_torch.tools.bench_raster, "
+        "gan2shape_torch.tools.chain_raster, "
+        "gan2shape_torch.tools.run_real_assets, "
+        "gan2shape_torch.tools.compare_depth, "
+        "gan2shape_torch.utils.tensor_utils\n"
         "sys.argv = ['chip_smoke.py', '--help']\n"
         "try:\n"
         "    runpy.run_path('chip_smoke.py', run_name='not_main')\n"
