@@ -10,11 +10,16 @@ Phases, each of which must pass:
      main path's shapes (B=1, 16 and 32; N and 16 * N of phase 9), (the
      raster kernels at windows 3 and 5, their
      payload buffers and keys bit-equal, the placement also on a folded
-     warp), and time the kernel's wrapper, the plain version and, where
-     one exists, one PyTorch call of the same function (a yardstick only), by
-     CUDA events per call; beside each wrapper time, the kernel's own device
-     time per launch, from torch.profiler by kernel name, and the least time
-     the card could take for what the function must do on this data;
+     warp; the splat within 4 ulps of its f32 plain version, bit-equal over
+     SPLAT_REPEATS more calls and bit-equal to its fixed-point emulation,
+     on synthetic starts and on splat calls captured from short runs of
+     phase 6's fit, phase 9's instance trainer and the generalizing
+     trainer's batched step 1), and time the kernel's wrapper, the plain
+     version and, where one exists, one PyTorch call of the same function
+     (a yardstick only), by CUDA events per call; beside each wrapper time,
+     the kernel's own device time per launch (the splat's: its three
+     kernels' a call), from torch.profiler by kernel name, and the least
+     time the card could take for what the function must do on this data;
   4. the rasterizer check (`gan2shape_torch.tools.check_raster`, the path of
      `raster_mega`, the counterpart of the JAX `_raster_mega_pallas`) at 64
      and 128 px, with the launch counts zeroed just before and read just
@@ -122,7 +127,15 @@ Phases, each of which must pass:
      reference's layout (each read, a written port checkpoint giving the
      depth-MAD); FULL_RUN.json, POOL_EVERY_CHECK.json and RUN_REAL.json
      hashed before and after, unchanged;
-  14. one JSON line describing every kernel, the card line again, and last
+  14. two card runs repeat: in a child process started with
+     CUBLAS_WORKSPACE_CONFIG (cuBLAS reads it once, at its first handle),
+     phase 6's fit twice from one seed under
+     `gan2shape_torch.utils.precision.deterministic()`, every kernel
+     launched (counts zeroed before each fit, read after), every loss and
+     every net parameter bit-equal; twice more without the context (an
+     INFO line with their gaps); then phase 6's timed blocks with and
+     without it, in turns (TIME repeat lines);
+  15. one JSON line describing every kernel, the card line again, and last
      {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Kernel builds and run
@@ -150,7 +163,18 @@ the checks of the planted faults must fail, and only those;
 
     python3 chip_smoke.py --tools
 
-phases 1-3 and 13.
+phases 1-3 and 13;
+
+    python3 chip_smoke.py --repeat
+
+phases 1-3 and 14.  `--kernels` also saves the captured splat calls to
+SPLAT_CALLS, and
+
+    python3 chip_smoke.py --splat-times build/splat_calls.pt
+
+times this checkout's splat on the synthetic calls and on those, with no
+check, so that two checkouts' splats are compared on the same calls (the
+recipe is in README.md).
 """
 
 import json
@@ -211,12 +235,21 @@ KERNEL_NAMES = {"raster_place": ("place_collide_kernel",
                                  "place_write_kernel"),
                 "raster_tests": ("tests_kernel",),
                 "fetch2x2": ("fetch2x2_kernel",),
-                "splat2x2": ("splat2x2_kernel",),
+                "splat2x2": ("splat_amax_kernel", "splat2x2_kernel",
+                             "splat_convert_kernel"),
                 "raster_mega": ("place_collide_kernel", "place_write_kernel",
                                 "tests_kernel")}
 # the kernels each driven path must launch
 MAIN_PATH = ("raster_place", "raster_tests", "fetch2x2", "splat2x2")
 CHECK_PATH = ("raster_place", "raster_tests", "fetch2x2")
+# the splat's batches on the main path, at 128 px and C=3 (no gradient
+# reaches the C=6 render): 1 (steps 1 and 3), N_INSTANCES (the instance
+# trainer's steps 1 and 3), 16 (the step-3 pool), 32 (the generalizing
+# step 1) and 16 * N_INSTANCES
+SPLAT_BATCHES = (1, N_INSTANCES, 16, 32, 16 * N_INSTANCES)
+SPLAT_REPEATS = 10        # calls that must repeat the first's bits
+CAPTURED_PER_LABEL = 2    # captured calls kept of each step and shape
+SPLAT_CALLS = "build/splat_calls.pt"  # --kernels saves its captured calls
 
 
 class Failed(Exception):
@@ -563,17 +596,229 @@ def window_inputs(b, c, s, seed):
     return src, iy, ix, gr
 
 
-def flat_index(iy, ix, b, c, s):
+def flat_index(iy, ix, c, h, w):
     """(B, 4C, P) index into src.view(B, C*H*W) for the one-call
     yardsticks."""
     import torch
-    ch = torch.arange(c, device="cuda").reshape(1, 1, c, 1) * (s * s)
-    taps = torch.stack([(iy + a) * s + (ix + t) for a in (0, 1)
+    b = iy.shape[0]
+    ch = torch.arange(c, device="cuda").reshape(1, 1, c, 1) * (h * w)
+    taps = torch.stack([(iy + a) * w + (ix + t) for a in (0, 1)
                         for t in (0, 1)], 1).long()  # (B, 4, P)
     return (taps[:, :, None, :] + ch).reshape(b, 4 * c, -1)
 
 
+def same_bits(a, b):
+    """Bit-equality of two f32 tensors (a NaN equals the same NaN)."""
+    import torch
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32),
+                                                   b.view(torch.int32)))
+
+
+def check_splat(label, g, iy, ix, shape):
+    """The splat kernel on one call: within 4 ulps of the largest value of
+    the f32 plain version, the same bits on SPLAT_REPEATS calls, and bit
+    for bit its fixed-point emulation.  Returns the max abs error."""
+    import torch
+    from gan2shape_torch.ops import splat_window as W
+
+    d = W.splat2x2(g, iy, ix, shape)
+    dref = W.splat2x2_plain(g, iy, ix, shape)
+    err = float((d - dref).abs().max())
+    scale = float(dref.abs().max())
+    # the f32 sum rounds at each of a few adds a pixel, the kernel once: a
+    # few ulps of the largest value
+    tol = 4 * torch.finfo(torch.float32).eps * max(scale, 1.0)
+    check(err <= tol, f"splat2x2 {label}: max abs err {err:.3e} at scale "
+          f"{scale:.4g} (<= {tol:.3e})")
+    same = all(same_bits(W.splat2x2(g, iy, ix, shape), d)
+               for _ in range(SPLAT_REPEATS))
+    check(same, f"splat2x2 {label}: {SPLAT_REPEATS} more calls bit-equal "
+          f"to the first")
+    check(same_bits(W.splat2x2_fixed_plain(g, iy, ix, shape), d),
+          f"splat2x2 {label}: bit-equal to splat2x2_fixed_plain")
+    return err
+
+
+def per_call_ms(times, names=None):
+    """Device ms a call from device_times' {name: (ms per launch, launches
+    a call)}, of the activities whose names contain one of `names` (all of
+    them for None).  The profiler sometimes drops a record (a memset seen
+    29 times in 30 calls, once a kernel 6 times in 30), which would
+    shrink a count: each activity counts as launched a whole number of
+    times a call, at least once."""
+    return sum(m * max(1, round(n)) for k, (m, n) in times.items()
+               if names is None or any(x in k for x in names))
+
+
+def time_splat(label, g, iy, ix, shape):
+    """A TIME line of the splat on one call: its wrapper by CUDA events; the
+    device time a call of its own kernels and of everything the call
+    launches (torch.profiler); the plain version; one torch.scatter_add of
+    the same function (a yardstick only) and its device time; and the
+    bound: g and the starts read once, dsrc written once.  Returns the
+    kernels-line entry (without max_abs_err)."""
+    import torch
+    from gan2shape_torch.ops import splat_window as W
+
+    b, c, h, w = shape
+    p = iy.shape[1]
+    io_bytes = (b * 4 * c * p + b * c * h * w) * 4 + 2 * b * p * 4
+    bms, by = bound_ms(io_bytes, b * p * 4 * c)
+    fn = lambda: W.splat2x2(g, iy, ix, shape)  # noqa: E731
+    ms = cuda_ms(fn)
+    times = device_times(fn)
+    own = per_call_ms(times, KERNEL_NAMES["splat2x2"])
+    dev_call = per_call_ms(times)
+    plain = cuda_ms(lambda: W.splat2x2_plain(g, iy, ix, shape))
+    zeros = torch.zeros(b, c * h * w, device="cuda")
+    idx = flat_index(iy, ix, c, h, w).reshape(b, -1)
+    gflat = g.reshape(b, -1)
+    lib_fn = lambda: torch.scatter_add(zeros, 1, idx, gflat)  # noqa: E731
+    lib = cuda_ms(lib_fn)
+    lib_times = device_times(lib_fn)
+    lib_dev = per_call_ms(lib_times)
+    parts = {short_name(k): [round(m, 5), n] for k, (m, n) in times.items()}
+    print(f"TIME splat2x2 {label}: {ms:.4f} ms, device {own:.4f} ms a call "
+          f"in its kernels ({dev_call:.4f} ms all it launches: {parts}), "
+          f"plain {plain:.4f} ms, torch.scatter_add {lib:.4f} ms (device "
+          f"{lib_dev:.4f} ms), bound {bms:.4f} ms ({by}); device/bound "
+          f"{own / bms:.2f}, device/scatter_add {own / lib_dev:.2f}",
+          flush=True)
+    return {"ms": ms, "device_ms": own, "wrapper_device_ms": dev_call,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib, "library_device_ms": lib_dev}
+
+
+def synthetic_splat_calls():
+    """The splat at each main-path batch of SPLAT_BATCHES, 128 px, C=3, on
+    window_inputs' starts: [(label, g, iy, ix, shape)]."""
+    calls = []
+    for b in SPLAT_BATCHES:
+        _, iy, ix, g = window_inputs(b, 3, 128, seed=99)
+        calls.append((f"synthetic B={b} C=3", g, iy, ix, (b, 3, 128, 128)))
+    return calls
+
+
+def capture_splat_calls():
+    """Real splat2x2 calls of the method, as its backward passes give them
+    to the kernel: phase 6's fit (B=1 in steps 1 and 3, B=16 in step 3),
+    the instance trainer's steps at N_INSTANCES (B=N and 16 * N) and the
+    generalizing trainer's batched step 1 (B=32), from seeded random
+    weights.  The first CAPTURED_PER_LABEL calls of each step and shape,
+    copied: [(label, g, iy, ix, shape)]."""
+    import numpy as np
+    import torch
+    from gan2shape_torch.core.trainer import GeneralizingTrainer, Trainer
+    from gan2shape_torch.ops import gather_window
+    from gan2shape_torch.parallel import InstanceParallelTrainer
+
+    calls, where = [], {"source": "", "step": ""}
+
+    def recording(real):
+        def splat(g, iy, ix, shape):
+            label = (f"{where['source']} {where['step']} B={shape[0]} "
+                     f"C={shape[1]}")
+            if sum(c[0] == label for c in calls) < CAPTURED_PER_LABEL:
+                calls.append((label, g.clone(), iy.clone(), ix.clone(),
+                              tuple(shape)))
+            return real(g, iy, ix, shape)
+        return splat
+
+    def labelled(step):
+        def make(real):
+            def run(self, *args):
+                where["step"] = step
+                return real(self, *args)
+            return run
+        return make
+
+    rng = np.random.default_rng(0)  # phase 6's image and latent
+    image = rng.uniform(-1, 1, (3, 128, 128)).astype(np.float32)
+    latent = rng.standard_normal(512).astype(np.float32)
+    rng = np.random.default_rng(10)  # phase 9's
+    n = N_INSTANCES
+    images = torch.as_tensor(rng.uniform(-1, 1, (n, 3, 128, 128)).astype(
+        np.float32), device="cuda")
+    latents = torch.as_tensor(rng.standard_normal((n, 512)).astype(
+        np.float32), device="cuda")
+    batch = torch.as_tensor(np.random.default_rng(12).uniform(
+        -1, 1, (ENTRY_IMAGES, 3, 128, 128)).astype(np.float32),
+        device="cuda")
+    with patched(gather_window, "splat2x2", recording), \
+            patched(Trainer, "run_step1", labelled("step1")), \
+            patched(Trainer, "run_step3", labelled("step3")):
+        where["source"] = "fit"
+        Trainer(FACE128, seed=0).fit([(image, latent, 0)], stages=[STAGE])
+        where["source"] = "instances"
+        trainer = InstanceParallelTrainer(FACE128, n, seed=0)
+        collected, _ = trainer.run_step1(images, 2)
+        coll2, _ = trainer.run_step2(images, latents, collected, 1)
+        trainer.run_step3(images, latents, coll2, 2)
+        del trainer
+        where["source"] = "generalizing"
+        GeneralizingTrainer(dist_face_config(), seed=0).run_step1(batch, 2)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return calls
+
+
+def displacement_box(iy, ix, shape):
+    """For a call with one window per pixel (P = H*W): the largest box of
+    window displacements (start minus pixel) over the batch's items, as
+    (rows, cols), the (dy, dx) values a per-pixel walk over displacements
+    would visit; None for other P."""
+    import torch
+    b, _, h, w = shape
+    if iy.shape[1] != h * w:
+        return None
+    pix = torch.arange(h * w, device=iy.device)
+    dy = iy.long() - pix // w
+    dx = ix.long() - pix % w
+    rows = dy.amax(1) - dy.amin(1) + 1
+    cols = dx.amax(1) - dx.amin(1) + 1
+    i = int((rows * cols).argmax())
+    return int(rows[i]), int(cols[i])
+
+
+def check_splat_calls(calls, results):
+    """check_splat on every call, and time_splat on the first of each
+    label; the synthetic B=16 call's timing goes into the kernels line."""
+    timed = set()
+    worst = results.get("splat2x2", {}).get("max_abs_err", 0.0)
+    for label, g, iy, ix, shape in calls:
+        worst = max(worst, check_splat(label, g, iy, ix, shape))
+        if label not in timed:
+            timed.add(label)
+            print(f"INFO splat2x2 {label}: largest displacement box of an "
+                  f"item {displacement_box(iy, ix, shape)} (rows, cols)",
+                  flush=True)
+            entry = time_splat(label, g, iy, ix, shape)
+            if label == "synthetic B=16 C=3":
+                results["splat2x2"] = entry
+    results["splat2x2"]["max_abs_err"] = worst
+
+
+def time_saved_splats(path):
+    """`--splat-times FILE`: time this checkout's splat on the synthetic
+    calls and on the captured calls saved in FILE (by `--kernels`), the
+    first of each label; no checks.  Two checkouts' kernels are compared
+    by running it in each, in turns, on one FILE."""
+    import torch
+
+    saved = torch.load(path)
+    calls = synthetic_splat_calls() + [
+        (label, g.cuda(), iy.cuda(), ix.cuda(), shape)
+        for label, g, iy, ix, shape in saved]
+    timed = set()
+    for label, g, iy, ix, shape in calls:
+        if label not in timed:
+            timed.add(label)
+            time_splat(label, g, iy, ix, shape)
+
+
 def check_window(results):
+    """The fetch and the splat against their plain versions at the main
+    path's (B, C), both timed; then the splat on the method's own calls."""
     import torch
     from gan2shape_torch.ops import splat_window as W
 
@@ -595,67 +840,51 @@ def check_window(results):
         worst_fetch = max(worst_fetch, err)
         check(err == 0.0, f"fetch2x2 C={c} B={b}: max abs err {err}"
               " (bit-exact)")
-        d = W.splat2x2(gr, iy, ix, (b, c, s, s))
-        dref = W.splat2x2_plain(gr, iy, ix, (b, c, s, s))
-        err = float((d - dref).abs().max())
-        scale = float(dref.abs().max())
-        # atomics reorder at most a few colliding adds per pixel: a few ulps
-        # of the largest value
-        tol = 4 * torch.finfo(torch.float32).eps * max(scale, 1.0)
-        worst_splat = max(worst_splat, err)
-        check(err <= tol, f"splat2x2 C={c} B={b}: max abs err {err:.3e}"
-              f" at scale {scale:.2f} (<= {tol:.3e})")
-        # the atomics' order varies from run to run: say whether it did here
-        same = bool(torch.equal(d, W.splat2x2(gr, iy, ix, (b, c, s, s))))
-        print(f"INFO splat2x2 C={c} B={b}: two calls bitwise equal {same}",
-              flush=True)
-    # timings at each kernel's largest main-path call, B=16 and 128 px: the
-    # fetch at C=6 (image + mask), the splat at C=3 (these go into the
-    # kernels line); then both at the generalizing step 1's B=32, C=3, and
-    # at the instance-parallel trainer's B=N and 16 * N
+        worst_splat = max(worst_splat, check_splat(
+            f"C={c} B={b}", gr, iy, ix, (b, c, s, s)))
+    # the fetch's timings at its largest main-path call, B=16 and 128 px
+    # at C=6 (image + mask; it goes into the kernels line), then at the
+    # generalizing step 1's B=32, C=3, and at the instance-parallel
+    # trainer's B=N and 16 * N
     s = 128
-    for b, name, c in ((16, "fetch2x2", 6), (16, "splat2x2", 3),
-                       (32, "fetch2x2", 3), (32, "splat2x2", 3),
-                       (N_INSTANCES, "fetch2x2", 3),
-                       (N_INSTANCES, "splat2x2", 3), (nb, "fetch2x2", 3),
-                       (nb, "fetch2x2", 6), (nb, "splat2x2", 3)):
-        src, iy, ix, gr = window_inputs(b, c, s, seed=99)
-        idx = flat_index(iy, ix, b, c, s)
+    for b, c in ((16, 6), (32, 3), (N_INSTANCES, 3), (nb, 3), (nb, 6)):
+        src, iy, ix, _ = window_inputs(b, c, s, seed=99)
+        idx = flat_index(iy, ix, c, s, s)
         io_bytes = (b * c * s * s + b * 4 * c * s * s) * 4 + 2 * b * s * s * 4
         bms, by = bound_ms(io_bytes, b * s * s * 4 * c)
-        if name == "fetch2x2":
-            flat = src.reshape(b, -1)
-            fn = lambda: W.fetch2x2(src, iy, ix)  # noqa: E731
-            plain = cuda_ms(lambda: W.fetch2x2_plain(src, iy, ix))
-            lib_fn = lambda: torch.gather(flat, 1,  # noqa: E731
-                                          idx.reshape(b, -1))
-            err = worst_fetch
-        else:
-            zeros = torch.zeros(b, c * s * s, device="cuda")
-            gflat = gr.reshape(b, -1)
-            fn = lambda: W.splat2x2(gr, iy, ix, (b, c, s, s))  # noqa: E731
-            plain = cuda_ms(lambda: W.splat2x2_plain(gr, iy, ix,
-                                                     (b, c, s, s)))
-            lib_fn = lambda: torch.scatter_add(  # noqa: E731
-                zeros, 1, idx.reshape(b, -1), gflat)
-            err = worst_splat
+        flat = src.reshape(b, -1)
+        fn = lambda: W.fetch2x2(src, iy, ix)  # noqa: E731
+        plain = cuda_ms(lambda: W.fetch2x2_plain(src, iy, ix))
+        lib_fn = lambda: torch.gather(flat, 1,  # noqa: E731
+                                      idx.reshape(b, -1))
         ms = cuda_ms(fn)
         times = device_times(fn)
-        dev, dev_call, parts = device_summary(times, KERNEL_NAMES[name])
+        dev, dev_call, parts = device_summary(times, KERNEL_NAMES["fetch2x2"])
         lib = cuda_ms(lib_fn)
         lib_times = device_times(lib_fn)
         lib_dev = sum(m * n for m, n in lib_times.values())
         if b == 16:
-            results[name] = {"max_abs_err": err, "ms": ms, "device_ms": dev,
-                             "wrapper_device_ms": dev_call,
-                             "plain_ms": plain, "bound_ms": bms,
-                             "bound_by": by, "library_ms": lib,
-                             "library_device_ms": lib_dev}
-        print(f"TIME {name}: {ms:.4f} ms, device {dev:.4f} ms per launch "
+            results["fetch2x2"] = {"max_abs_err": worst_fetch, "ms": ms,
+                                   "device_ms": dev,
+                                   "wrapper_device_ms": dev_call,
+                                   "plain_ms": plain, "bound_ms": bms,
+                                   "bound_by": by, "library_ms": lib,
+                                   "library_device_ms": lib_dev}
+        print(f"TIME fetch2x2: {ms:.4f} ms, device {dev:.4f} ms per launch "
               f"({dev_call:.4f} ms per call: {parts}), plain {plain:.4f} ms, "
               f"library {lib:.4f} ms (device {lib_dev:.4f} ms: "
               f"{ {short_name(k): v for k, v in lib_times.items()} }), bound "
               f"{bms:.4f} ms ({by}), at B={b} {s}px C={c}", flush=True)
+    # the splat at every main-path batch on synthetic starts, then on the
+    # method's own calls; B=16 synthetic goes into the kernels line
+    results["splat2x2"] = {"max_abs_err": worst_splat}
+    t0 = time.perf_counter()
+    captured = capture_splat_calls()
+    print(f"captured {len(captured)} splat2x2 calls of the method in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          f"{sorted({c[0] for c in captured})}", flush=True)
+    check_splat_calls(synthetic_splat_calls() + captured, results)
+    return captured
 
 
 def check_raster_gradients():
@@ -3474,21 +3703,173 @@ def tools_real_assets(tmp):
           f"checkpoint {mad}; files read: {loaded}")
 
 
+# ---------------- phase 14: two card runs repeat ----------------
+
+REPEAT_TIMEOUT = 600  # seconds for the child process (the phase: ~1 min)
+
+
+def run_repeat(card):
+    """Phase 14 in a child process whose environment holds
+    CUBLAS_WORKSPACE_CONFIG from its start: cuBLAS reads it once, when its
+    first handle is made, which the earlier phases did without it."""
+    import os
+    from gan2shape_torch.utils import precision as P
+
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=P.CUBLAS_WORKSPACE_CONFIG)
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    try:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--repeat-child"], env=env,
+                            timeout=REPEAT_TIMEOUT).returncode
+    except subprocess.TimeoutExpired:  # run() has killed the child
+        rc = f"a timeout after {REPEAT_TIMEOUT} s"
+    check(rc == 0, f"the repeat phase's process ended with {rc}")
+    print(f"TIME repeat phase: {time.perf_counter() - t0:.2f} s wall, its "
+          f"process included ({card})", flush=True)
+
+
+def recorded_fit(image, latent):
+    """Phase 6's fit from seed 0: (every iteration's loss of the prior and
+    the three steps, in order, as one tensor; the nets' parameters; the
+    launch counts, zeroed just before and read just after)."""
+    import torch
+    from gan2shape_torch.core.trainer import Trainer
+    from gan2shape_torch.ops import _cuda
+
+    losses = []
+
+    def recording(real):
+        def step(self, loss, opt):
+            losses.append(loss.detach().clone())
+            return real(self, loss, opt)
+        return step
+
+    trainer = Trainer(FACE128, seed=0)
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    with patched(Trainer, "_step", recording):
+        trainer.fit([(image, latent, 0)], stages=[STAGE])
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    nets = {k: v.detach().clone()
+            for k, v in trainer.model.nets.state_dict().items()}
+    return torch.cat([x.reshape(-1) for x in losses]), nets, launches
+
+
+def fits_compared(a, b):
+    """(losses bit-equal, every parameter bit-equal, largest loss gap,
+    largest parameter gap) of two recorded fits."""
+    import torch
+    la, na, _ = a
+    lb, nb, _ = b
+    nets = all(torch.equal(na[k], nb[k]) for k in na)
+    loss_gap = float((la - lb).abs().max())
+    net_gap = max(float((na[k] - nb[k]).abs().max()) for k in na)
+    return torch.equal(la, lb), nets, loss_gap, net_gap
+
+
+def repeat_main():
+    """`--repeat-child`: phase 6's fit twice from one seed under
+    `precision.deterministic()`, every loss and every net parameter
+    compared bit for bit; twice more without it (an INFO line: how far two
+    runs differ there); then phase 6's timed blocks with and without the
+    context, in turns."""
+    import numpy as np
+    import torch
+    from gan2shape_torch.core.trainer import Trainer
+    from gan2shape_torch.device import resolve_device
+    from gan2shape_torch.ops import _cuda
+    from gan2shape_torch.utils import precision as P
+
+    P.set_matmul_precision("highest")
+    P.set_act_dtype("float32")
+    resolve_device("cuda")
+    _cuda.build()
+    rng = np.random.default_rng(0)
+    image = rng.uniform(-1, 1, (3, 128, 128)).astype(np.float32)
+    latent = rng.standard_normal(512).astype(np.float32)
+    try:
+        t0 = time.perf_counter()
+        with P.deterministic():
+            a = recorded_fit(image, latent)
+            b = recorded_fit(image, latent)
+        fit_s = (time.perf_counter() - t0) / 2
+        launches = a[2]
+        missing = [k for k in MAIN_PATH if launches[k] == 0]
+        check(not missing and a[2] == b[2],
+              f"repeat: every kernel of the main path launched under "
+              f"deterministic(), as often in both runs (none missing: "
+              f"{missing}; {launches})")
+        losses, nets, loss_gap, net_gap = fits_compared(a, b)
+        check(bool(torch.isfinite(a[0]).all()) and losses,
+              f"repeat: phase 6's fit twice under deterministic() "
+              f"({fit_s:.2f} s a fit): all {a[0].numel()} losses (prior "
+              f"{FACE128['n_epochs_prior']} + {STAGE}) bit-equal")
+        check(nets, f"repeat: every one of the {len(a[1])} net parameter "
+              f"tensors bit-equal after the two fits")
+        c = recorded_fit(image, latent)
+        d = recorded_fit(image, latent)
+        losses, nets, loss_gap, net_gap = fits_compared(c, d)
+        print(f"INFO repeat without deterministic(): losses bit-equal "
+              f"{losses} (largest gap {loss_gap:.3e}), nets bit-equal {nets} "
+              f"(largest gap {net_gap:.3e}); against the deterministic run: "
+              f"losses {float((c[0] - a[0]).abs().max()):.3e} apart",
+              flush=True)
+
+        trainer = Trainer(FACE128, seed=0)
+        img = torch.as_tensor(image, device="cuda")[None]
+        lat = torch.as_tensor(latent, device="cuda")[None]
+        prior = torch.full((128, 128), 1.0, device="cuda")
+        blocks = {True: [], False: []}
+        for det in (True, False, False, True):
+            if det:
+                with P.deterministic():
+                    per_step = timed_steps(trainer, img, lat, prior,
+                                           TIMED_ITERS)[0]
+            else:
+                per_step = timed_steps(trainer, img, lat, prior,
+                                       TIMED_ITERS)[0]
+            blocks[det].append({k: v[0] for k, v in per_step.items()})
+        ms = {det: {k: sum(blk[k] for blk in v) / len(v) for k in v[0]}
+              for det, v in blocks.items()}
+        for k in ms[True]:
+            print(f"TIME repeat {k}: {ms[True][k]:.2f} ms/iter under "
+                  f"deterministic(), {ms[False][k]:.2f} without "
+                  f"({ms[True][k] / ms[False][k] - 1:+.1%}; blocks of "
+                  f"{TIMED_ITERS} in turns on, off, off, on: "
+                  f"{[round(b[k], 2) for b in blocks[True]]} / "
+                  f"{[round(b[k], 2) for b in blocks[False]]})", flush=True)
+        inst = {det: sum(n * ms[det][k] for k, n in SCHEDULE.items()) / 1e3
+                for det in ms}
+        print(f"TIME repeat instance: {inst[True]:.1f} s projected for the "
+              f"face schedule under deterministic(), {inst[False]:.1f} "
+              f"without ({inst[True] / inst[False] - 1:+.1%})", flush=True)
+    except Failed:
+        return 1
+    return 0
+
+
 def main(argv):
     import torch
 
     if len(argv) == 2 and argv[0] == "--distributed-rank":
         return dist_rank_main(argv[1])
+    if argv == ["--repeat-child"]:
+        return repeat_main()
     kernels_only = argv == ["--kernels"]
     precision_only = argv == ["--precision"]
     planted = argv == ["--distributed-planted"]
     distributed_only = argv == ["--distributed"] or planted
     tools_only = argv == ["--tools"]
+    repeat_only = argv == ["--repeat"]
+    splat_times = argv[1] if len(argv) == 2 and argv[0] == "--splat-times" \
+        else None
     if argv and not (kernels_only or precision_only or distributed_only
-                     or tools_only):
+                     or tools_only or repeat_only or splat_times):
         print(f"usage: python3 chip_smoke.py [--kernels | --precision | "
-              f"--distributed | --distributed-planted | --tools] (got "
-              f"{argv})")
+              f"--distributed | --distributed-planted | --tools | --repeat "
+              f"| --splat-times FILE] (got {argv})")
         return 2
     if not torch.cuda.is_available():
         print("FAIL no CUDA device: this smoke run needs one GPU",
@@ -3498,6 +3879,10 @@ def main(argv):
     print(f"CARD {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    if splat_times:
+        time_saved_splats(splat_times)
+        print(card_line(), flush=True)
+        return 0
     try:
         from gan2shape_torch.device import resolve_device
         from gan2shape_torch.ops import _cuda
@@ -3519,13 +3904,19 @@ def main(argv):
 
         results = {}
         check_raster(results)
-        check_window(results)
+        captured = check_window(results)
+        if kernels_only:
+            torch.save([(label, g.cpu(), iy.cpu(), ix.cpu(), shape)
+                        for label, g, iy, ix, shape in captured],
+                       SPLAT_CALLS)
         if precision_only:
             run_precision(card)
         elif distributed_only:
             run_distributed(card, planted)
         elif tools_only:
             run_tools(card)
+        elif repeat_only:
+            run_repeat(card)
         elif not kernels_only:
             check_raster_gradients()
             check_launches = run_check_path(results)
@@ -3538,6 +3929,7 @@ def main(argv):
             run_precision(card)
             rank_launches = run_distributed(card)
             bench_launches = run_tools(card)
+            run_repeat(card)
     except Failed:
         return 1
     except RuntimeError as exc:  # a timing that found no device activity
@@ -3545,7 +3937,8 @@ def main(argv):
         return 1
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        if kernels_only or precision_only or distributed_only or tools_only:
+        if (kernels_only or precision_only or distributed_only or tools_only
+                or repeat_only):
             # no main path: no launch counts
             if name in results:
                 kernels.append({"name": name, "source": source,

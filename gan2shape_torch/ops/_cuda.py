@@ -32,7 +32,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "window": {
         "g2s_fetch2x2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-        "g2s_splat2x2": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "g2s_splat2x2": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     },
     "raster": {
         "g2s_raster_place": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),

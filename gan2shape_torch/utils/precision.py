@@ -30,6 +30,10 @@ around a forward call alone would not do: autograd runs the backward
 matmuls later, under the global flags.  The one torch API used for the
 flags is the `allow_tf32` pair; torch raises when it is mixed with the
 newer `fp32_precision` attributes.
+
+`deterministic()` is a context in which two runs of the same work on the
+card repeat bit for bit.  It is not part of the policy, and no trainer
+turns it on by default.
 """
 
 import os
@@ -117,6 +121,38 @@ def exact_f32():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+# cuBLAS repeats its results only with a fixed workspace layout, read from
+# the environment when its first handle is made
+CUBLAS_WORKSPACE_CONFIG = ":4096:8"
+
+
+@contextmanager
+def deterministic():
+    """Inside the block two runs of the same work on the card give the same
+    bits: cuDNN's deterministic algorithms without autotuning, and torch's
+    deterministic mode, which raises on any op without a deterministic CUDA
+    kernel (and fills fresh tensors from `torch.empty`).  The flags are
+    restored after.  `CUBLAS_WORKSPACE_CONFIG` is set to
+    `CUBLAS_WORKSPACE_CONFIG` if unset, but cuBLAS reads it only once, when
+    its first handle is made: a process that has already run a matmul on
+    the card must have had it in its environment from the start.  The
+    port's own kernels are deterministic under every setting."""
+    saved = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", CUBLAS_WORKSPACE_CONFIG)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved[0]
+        torch.backends.cudnn.benchmark = saved[1]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
 
 
 class _ExactMatmul(torch.autograd.Function):

@@ -5,9 +5,10 @@ also runs where only the port is installed:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 
-The fetch is bit-exact; the splat's atomics reorder colliding adds, so it is
-held to a few ulps; the raster payload buffers and winner keys, and the
-`raster_mega` triple, are bit-exact."""
+The fetch is bit-exact; the splat sums in fixed point, so it is held to a
+few ulps of the f32 sum, bit-equal to its fixed-point emulation and to
+itself on a repeated call; the raster payload buffers and winner keys, and
+the `raster_mega` triple, are bit-exact."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,8 @@ from gan2shape_torch.ops.rasterize import (
     raster_mega, raster_place, raster_tests,
 )
 from gan2shape_torch.ops.splat_window import (
-    fetch2x2, fetch2x2_plain, splat2x2, splat2x2_plain,
+    fetch2x2, fetch2x2_plain, splat2x2, splat2x2_fixed_plain,
+    splat2x2_plain,
 )
 from gan2shape_torch.rendering.renderer import (
     Renderer, get_transform_matrices,
@@ -65,14 +67,26 @@ def test_fetch_and_splat_kernels_match_plain(rng, cuda, c):
     got = splat2x2(g.to(cuda), iy.to(cuda), ix.to(cuda), (b, c, h, w)).cpu()
     want = splat2x2_plain(g, iy, ix, (b, c, h, w))
     assert float((got - want).abs().max()) <= _splat_tol(want)
+    _assert_repeats_and_matches_fixed(g, iy, ix, (b, c, h, w), got, cuda)
+
+
+def _assert_repeats_and_matches_fixed(g, iy, ix, shape, got, cuda):
+    """The splat kernel gives the same bits on a second call and equals its
+    fixed-point emulation bit for bit (on the card's tensors; compared as
+    int32, where a NaN equals itself)."""
+    args = (g.to(cuda), iy.to(cuda), ix.to(cuda), shape)
+    bits = got.view(torch.int32)
+    assert torch.equal(splat2x2(*args).cpu().view(torch.int32), bits)
+    assert torch.equal(splat2x2_fixed_plain(*args).cpu().view(torch.int32),
+                       bits)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,c,h,w,p", [
     (1, 3, 128, 128, 128 * 128), (4, 3, 64, 64, 64 * 64),
     (3, 5, 37, 45, 37 * 45),
-    # the patch layout of gather_window2x2: any number of points
-    (2, 3, 64, 64, 1000), (1, 6, 32, 48, 32 * 48 + 7)])
+    # the patch layout of gather_window2x2: any number of points, none too
+    (2, 3, 64, 64, 1000), (1, 6, 32, 48, 32 * 48 + 7), (2, 3, 16, 16, 0)])
 def test_splat_kernel_shapes(rng, cuda, b, c, h, w, p):
     g = torch.from_numpy(rng.standard_normal((b, 4 * c, p)).astype(
         np.float32))
@@ -84,6 +98,39 @@ def test_splat_kernel_shapes(rng, cuda, b, c, h, w, p):
     _cuda.reset_launches()
     got = splat2x2(g.to(cuda), iy.to(cuda), ix.to(cuda), (b, c, h, w)).cpu()
     assert _cuda.LAUNCHES["splat2x2"] == 1
+    want = splat2x2_plain(g, iy, ix, (b, c, h, w))
+    assert float((got - want).abs().max()) <= _splat_tol(want)
+    _assert_repeats_and_matches_fixed(g, iy, ix, (b, c, h, w), got, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_window", "zeros", "single_large",
+                                  "nan_plane"])
+def test_splat_kernel_extremes(rng, cuda, case):
+    # every point on one window: each of its pixels sums all P taps of a
+    # plane, the most the fixed-point headroom allows for
+    b, c, h, w, p = 2, 3, 32, 32, 32 * 32
+    g = torch.from_numpy(rng.standard_normal((b, 4 * c, p)).astype(
+        np.float32))
+    iy, ix = _starts(rng, b, h, w)
+    if case == "one_window":
+        iy.fill_(5)
+        ix.fill_(7)
+        g = g.sign() * 3.0e4
+    elif case == "zeros":
+        g.zero_()
+    elif case == "single_large":
+        g[1, 4, 100] = 3.0e38
+    else:
+        g[0, 2 * c + 1, 17] = float("nan")
+    got = splat2x2(g.to(cuda), iy.to(cuda), ix.to(cuda), (b, c, h, w)).cpu()
+    _assert_repeats_and_matches_fixed(g, iy, ix, (b, c, h, w), got, cuda)
+    if case == "nan_plane":
+        # the plane that holds a NaN comes out all NaN, the others finite
+        assert bool(got[0, 1].isnan().all())
+        got[0, 1] = 0.0
+        assert bool(torch.isfinite(got).all())
+        return
     want = splat2x2_plain(g, iy, ix, (b, c, h, w))
     assert float((got - want).abs().max()) <= _splat_tol(want)
 

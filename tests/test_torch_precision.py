@@ -3,7 +3,8 @@
   * the policy's state: names validated before they are assigned, the
     environment read at import, 'auto' as f32, both config keys applied by
     `GAN2Shape`, `resolve_device` keeping the policy, the torch flags as
-    each name maps them, `exact_matmul` equal to `torch.matmul`;
+    each name maps them, `exact_matmul` equal to `torch.matmul`, the
+    `deterministic()` context's flags set and restored;
   * the frozen stacks under 'bfloat16' against the JAX package's under its
     own 'bfloat16', on one JAX init brought over through the bridge: the
     generator (32 px, style_dim 32, n_mlp 2) with the discriminator's taps,
@@ -159,6 +160,31 @@ def test_policy_context_restores_on_error():
             raise RuntimeError("inside")
     assert prec.matmul_precision() == "highest"
     assert prec.act_dtype() == torch.float32 and _flags() == (False, False)
+
+
+def _det_flags():
+    return (torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark,
+            torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+
+
+@pytest.mark.parametrize("preset", [None, ":16:8"])
+def test_deterministic_context_sets_and_restores_flags(monkeypatch, preset):
+    # cuBLAS's workspace is set when unset, and a value already in the
+    # environment is kept
+    if preset is None:
+        monkeypatch.delenv("CUBLAS_WORKSPACE_CONFIG", raising=False)
+    else:
+        monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", preset)
+    before = _det_flags()
+    with pytest.raises(RuntimeError):
+        with prec.deterministic():
+            assert _det_flags() == (True, False, True, False)
+            assert os.environ["CUBLAS_WORKSPACE_CONFIG"] == (
+                preset or prec.CUBLAS_WORKSPACE_CONFIG)
+            raise RuntimeError("inside")
+    assert _det_flags() == before
 
 
 def test_gan2shape_applies_both_config_keys_and_resolve_device_keeps_them():
