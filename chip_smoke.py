@@ -135,7 +135,26 @@ Phases, each of which must pass:
      every net parameter bit-equal; twice more without the context (an
      INFO line with their gaps); then phase 6's timed blocks with and
      without it, in turns (TIME repeat lines);
-  15. one JSON line describing every kernel, the card line again, and last
+  15. the other categories, each in a temporary folder of its own holding
+     a written data/<category> set of CATEGORY_IMAGES 128-px images, a
+     seeded random StyleGAN2 checkpoint at the config's gan_ckpt_path, size
+     and width, and a PSPNet-50 parsing file: for cat (GAN 256, channel
+     multiplier 1, 16 pseudo samples), church (256, 2, 8) and car (512, 2,
+     8), the config of `load_config` (the smoothed_box prior and the depth
+     overridden); `cli.train --prior smoothed_box --save-ckpts --images 0`
+     (prior 20 + one 5/5/5 stage) with the launch counts zeroed before and
+     read after, every kernel launched, losses finite, the written GAN
+     checkpoint loaded, the prior from the net (church: the all-ones mask
+     of a category outside VOC's); `cli.evaluate --record-loss` as in phase
+     7; timed blocks and profiler windows of each step, the peak memory and
+     the instance time projected (car's step 2 also under 'high'); car's
+     `--generalize` at batch_size 8 (its batched step 1 timed); for church
+     and car, the InstanceParallelTrainer at N=2 held to a sequential
+     Trainer (launches, instance 0's iteration-0 loss within 1e-5), then
+     the largest N of CATEGORY_NS whose memory, reckoned from the peaks of
+     N=1 and N=2, fits CATEGORY_HEADROOM of the card, for one timed block
+     (its peak must fit too);
+  16. one JSON line describing every kernel, the card line again, and last
      {"ok": true, "device": {...}}.
 
 Any failure exits non-zero before the last line.  Kernel builds and run
@@ -167,7 +186,11 @@ phases 1-3 and 13;
 
     python3 chip_smoke.py --repeat
 
-phases 1-3 and 14.  `--kernels` also saves the captured splat calls to
+phases 1-3 and 14;
+
+    python3 chip_smoke.py --categories
+
+phases 1-3 and 15.  `--kernels` also saves the captured splat calls to
 SPLAT_CALLS, and
 
     python3 chip_smoke.py --splat-times build/splat_calls.pt
@@ -1256,9 +1279,9 @@ class patched:
             delattr(self.owner, self.name)
 
 
-def write_face_set(root, n, size, seed):
-    """A data/face set as download_data.py lays it out: list.txt, PNGs and
-    latents/*.pt."""
+def write_image_set(root, n, size, seed, category="face"):
+    """A data/<category> set as download_data.py lays it out: list.txt,
+    PNGs and latents/*.pt."""
     import os
 
     import numpy as np
@@ -1266,7 +1289,7 @@ def write_face_set(root, n, size, seed):
     from PIL import Image
 
     rng = np.random.default_rng(seed)
-    folder = os.path.join(root, "data", "face")
+    folder = os.path.join(root, "data", category)
     os.makedirs(os.path.join(folder, "latents"))
     names = []
     for i in range(n):
@@ -1312,7 +1335,7 @@ def run_entry_points(card):
     here = os.getcwd()
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        write_face_set(tmp, ENTRY_IMAGES, 128, seed=5)
+        write_image_set(tmp, ENTRY_IMAGES, 128, seed=5)
         config = load_config(
             category="face", config_dir=str(root / "configs"),
             minimal_config=str(root / "minimal_config.yml"),
@@ -1331,7 +1354,7 @@ def run_entry_points(card):
               f"{config['batch_size']}, prior {config['prior_name']}")
         os.chdir(tmp)  # results/ goes here
         try:
-            instance_and_evaluation(T, E, C, _cuda, config, tmp)
+            instance_and_evaluation(T, E, C, _cuda, config)
             data = ImageLatentDataset(os.path.join(tmp, "data", "face"),
                                       image_size=config["image_size"])
             fitted, launches = generalizing(T, C, GeneralizingTrainer, _cuda,
@@ -1344,13 +1367,20 @@ def run_entry_points(card):
     return launches
 
 
-def instance_and_evaluation(T, E, C, _cuda, config, tmp):
-    """(a) and (b) of `run_entry_points`."""
+def instance_and_evaluation(T, E, C, _cuda, config, images=(0, 1),
+                            flags=()):
+    """(a) and (b) of `run_entry_points` on `config`'s category and data:
+    `cli.train --save-ckpts --images ...` (with `flags`) and `cli.evaluate
+    --record-loss` of its checkpoints.  Returns (the trainer, the launch
+    counts of cli.train, its history)."""
     import os
 
     import numpy as np
     import torch
     from gan2shape_torch.core.dataset import ImageDataset
+
+    category = config["category"]
+    picked = [str(i) for i in images]
 
     snapshots = {}
 
@@ -1362,8 +1392,9 @@ def instance_and_evaluation(T, E, C, _cuda, config, tmp):
             return real(self, nets, img_idx, *rest)
         return save
 
-    args = T.parse_args(["--category", "face", "--save-ckpts", "--images",
-                         "0", "1"])
+    args_list = ["--category", category, "--save-ckpts", *flags,
+                 "--images", *picked]
+    args = T.parse_args(args_list)
     torch.cuda.synchronize()
     _cuda.reset_launches()
     t0 = time.perf_counter()
@@ -1371,68 +1402,76 @@ def instance_and_evaluation(T, E, C, _cuda, config, tmp):
         trainer, history = T.run(config, args, stages=[ENTRY_STAGE])
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
-    print(f"cli.train instance mode: 2 images, prior "
-          f"{config['n_epochs_prior']} + {ENTRY_STAGE} in "
+    print(f"cli.train {category} instance mode: {len(images)} images, "
+          f"prior {config['n_epochs_prior']} + {ENTRY_STAGE} in "
           f"{time.perf_counter() - t0:.2f} s; launches {launches}",
           flush=True)
-    files = os.listdir(os.path.join(tmp, "ckpts", "face"))
+    ckpts = config["our_nets_ckpts"]["VLADE_nets"]
+    files = os.listdir(os.path.join(ckpts, category))
     counts = {img: (sum(f.startswith(f"manifest_image_{img}_")
                         for f in files),
                     sum(f"_image_{img}_" in f and f.endswith(".pth")
-                        for f in files)) for img in (0, 1)}
+                        for f in files)) for img in images}
     losses = [x for h in history for k in ("losses_step1", "losses_step2",
                                            "losses_step3") for x in h[k]]
-    check([h["image"] for h in history] == [0, 1]
-          and len(losses) == 2 * sum(ENTRY_STAGE.values())
-          and all_finite(losses) and counts == {0: (1, 5), 1: (1, 5)}
-          and sorted(snapshots) == [0, 1],
-          f"cli.train --save-ckpts: {len(losses)} losses finite, per image "
-          f"(manifests, .pth files) {counts}")
+    check([h["image"] for h in history] == list(images)
+          and len(losses) == len(images) * sum(ENTRY_STAGE.values())
+          and all_finite(losses)
+          and counts == {img: (1, 5) for img in images}
+          and sorted(snapshots) == list(images),
+          f"cli.train {' '.join(args_list)}: {len(losses)} losses finite, "
+          f"per image (manifests, .pth files) {counts}")
     missing = [k for k in MAIN_PATH if launches[k] == 0]
     check(not missing, f"every kernel of the main path launched in "
-          f"cli.train (none missing: {missing})")
+          f"cli.train {category} (none missing: {missing})")
 
     # (b) the evaluation reloads what the trainer saved
-    mgr = C.CheckpointManager(config["our_nets_ckpts"]["VLADE_nets"])
+    mgr = C.CheckpointManager(ckpts)
     equal = {int(img): all(torch.equal(nets[n][k], v.cpu())
                            for n in C.NETS
                            for k, v in snapshots[int(img)][n].items())
-             for img, nets in mgr.load_per_image("face")}
-    check(equal == {0: True, 1: True},
-          f"reloaded state_dicts bit-equal to the trainer's: {equal}")
-    eargs = E.parse_args(["--category", "face", "--record-loss", "--images",
-                          "0", "1"])
+             for img, nets in mgr.load_per_image(category)}
+    check(equal == {img: True for img in images},
+          f"{category} reloaded state_dicts bit-equal to the trainer's: "
+          f"{equal}")
+    eargs = E.parse_args(["--category", category, "--record-loss",
+                          "--images", *picked])
     t0 = time.perf_counter()
     records = E.run(config, eargs)
     torch.cuda.synchronize()
-    print(f"cli.evaluate --record-loss: {len(records)} images in "
+    print(f"cli.evaluate {category} --record-loss: {len(records)} images in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    images = ImageDataset(os.path.join(tmp, "data", "face"),
-                          image_size=config["image_size"])
+    data = ImageDataset(os.path.join(config["root_path"], category),
+                        image_size=config["image_size"])
     worst = 0.0
     for r in records:
         C.load_nets(trainer.model, snapshots[r["image"]])
         with torch.no_grad():
             want, _ = trainer.model.forward_step1(torch.as_tensor(
-                images[r["image"]], device=trainer.device)[None])
+                data[r["image"]], device=trainer.device)[None])
         worst = max(worst, abs(r["loss"] - float(want)) / abs(float(want)))
     finite = all(bool(np.isfinite(r["recon"]).all()
                       and np.isfinite(r["depth"]).all()) for r in records)
-    check([r["image"] for r in records] == [0, 1] and worst <= 1e-6
+    check([r["image"] for r in records] == list(images) and worst <= 1e-6
           and finite and os.path.exists("results/step1_losses.npy"),
-          f"cli.evaluate: step-1 losses "
+          f"cli.evaluate {category}: step-1 losses "
           f"{[round(r['loss'], 6) for r in records]} from the checkpoints "
           f"equal the trainer's in-memory model's within {worst:.2e} "
           f"relative (<= 1e-6); reconstructions and depths finite")
+    return trainer, launches, history
 
 
-def generalizing(T, C, GeneralizingTrainer, _cuda, config, data, card):
-    """(c): --generalize over one batch of ENTRY_IMAGES with checkpoints;
-    the batched step 1 timed and its launches counted.  Returns the nets'
-    state after the fit."""
+def generalizing(T, C, GeneralizingTrainer, _cuda, config, data, card,
+                 stage=GENERALIZING_STAGE, flags=()):
+    """(c): --generalize (with `flags`) over one batch of all of `data`
+    with checkpoints, on `config`'s category, its batch_size the size of
+    `data`; the batched step 1 timed and its launches counted.  Returns
+    the nets' state after the fit and the step's launch counts."""
     import numpy as np
     import torch
 
+    category = config["category"]
+    n_images = len(data)
     step1 = []
 
     def counted_step1(real):
@@ -1447,11 +1486,12 @@ def generalizing(T, C, GeneralizingTrainer, _cuda, config, data, card):
             return out
         return run_step1
 
-    args = T.parse_args(["--category", "face", "--save-ckpts",
-                         "--generalize"])
+    args_list = ["--category", category, "--save-ckpts", *flags,
+                 "--generalize"]
+    args = T.parse_args(args_list)
     t0 = time.perf_counter()
     with patched(GeneralizingTrainer, "run_step1", counted_step1):
-        trainer, history = T.run(config, args, stages=[GENERALIZING_STAGE])
+        trainer, history = T.run(config, args, stages=[stage])
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     losses = ([h["loss_step1"] for h in history]
@@ -1459,25 +1499,26 @@ def generalizing(T, C, GeneralizingTrainer, _cuda, config, data, card):
                                               "losses_step3")
                  for x in h.get(k, [])])
     (m,) = C.CheckpointManager(config["our_nets_ckpts"]["VLADE_nets"]
-                               ).select("face", img_idx="")
-    check(len(history) == ENTRY_IMAGES and all_finite(losses)
-          and len(history[-1]["losses_step1"]) == GENERALIZING_STAGE["step1"]
+                               ).select(category, img_idx="")
+    check(len(history) == n_images == config["batch_size"]
+          and all_finite(losses)
+          and len(history[-1]["losses_step1"]) == stage["step1"]
           and (m["image"], m["stage"]) == ("", 0)
           and m["total_it"] == history[-1]["total_it"],
-          f"cli.train --generalize, batch_size {config['batch_size']}: "
+          f"cli.train {' '.join(args_list)}, batch_size "
+          f"{config['batch_size']}: "
           f"{len(history)} image records, {len(losses)} losses finite, "
           f"epoch-0 general checkpoint (image '{m['image']}', stage "
           f"{m['stage']}, total_it {m['total_it']})")
     (b, n, dt, launches), = step1
     missing = [k for k in MAIN_PATH if launches[k] == 0]
-    check(b == ENTRY_IMAGES and n == GENERALIZING_STAGE["step1"]
-          and not missing,
-          f"batched step 1 at B={b}, {n} iterations: launches {launches} "
-          f"(none missing: {missing})")
-    print(f"TIME generalizing step 1 at B={b} 128px: "
+    check(b == n_images and n == stage["step1"] and not missing,
+          f"{category} batched step 1 at B={b}, {n} iterations: launches "
+          f"{launches} (none missing: {missing})")
+    print(f"TIME generalizing {category} step 1 at B={b} 128px: "
           f"{dt * 1e3 / n:.2f} ms per iteration over the fit's {n}-iteration "
           f"block (its invariants included); fit {fit_s:.2f} s (prior "
-          f"{config['n_epochs_prior']} at B={b}, {GENERALIZING_STAGE}; "
+          f"{config['n_epochs_prior']} at B={b}, {stage}; "
           f"{card})", flush=True)
     fitted = {n: {k: v.clone() for k, v in
                   trainer.model.nets[n].state_dict().items()}
@@ -1492,10 +1533,10 @@ def generalizing(T, C, GeneralizingTrainer, _cuda, config, data, card):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t) * 1e3 / TIMED_ITERS
     check(all_finite([float(x) for x in l1]),
-          "timed generalizing step-1 losses finite")
-    print(f"TIME generalizing step 1 at B={ENTRY_IMAGES} 128px: {ms:.2f} ms "
-          f"per iteration over a timed block of {TIMED_ITERS} ({card})",
-          flush=True)
+          f"timed generalizing {category} step-1 losses finite")
+    print(f"TIME generalizing {category} step 1 at B={n_images} 128px: "
+          f"{ms:.2f} ms per iteration over a timed block of {TIMED_ITERS} "
+          f"({card})", flush=True)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1504,8 +1545,8 @@ def generalizing(T, C, GeneralizingTrainer, _cuda, config, data, card):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     try:
-        report_profile(f"generalizing step1 B={ENTRY_IMAGES}", prof, wall_us,
-                       ms, PROFILED_ITERS)
+        report_profile(f"generalizing {category} step1 B={n_images}", prof,
+                       wall_us, ms, PROFILED_ITERS)
     except Exception as exc:  # a measurement only: say so, run on
         print(f"PROFILE generalizing step1: not measured ({exc!r})",
               flush=True)
@@ -1632,7 +1673,7 @@ def run_masker(card):
                       f"{ms:.3f} ms by CUDA events, {dev:.3f} ms of device "
                       f"time by torch.profiler ({card})", flush=True)
             # the masker behind the priors of cli.train --n-instances
-            write_face_set(tmp, 2, 128, seed=9)
+            write_image_set(tmp, 2, 128, seed=9)
             config = load_config(
                 category="face", config_dir=str(root / "configs"),
                 minimal_config=str(root / "minimal_config.yml"),
@@ -3595,13 +3636,12 @@ def write_reference_assets(root, seed):
     import torch
     from gan2shape_torch.core.checkpoint import CheckpointManager
     from gan2shape_torch.core.model import GAN2Shape
-    from gan2shape_torch.tools.run_real_assets import GAN_CKPTS
     from gan2shape_torch.utils.config import load_config
 
     repo = Path(__file__).resolve().parent
     config = load_config(category="face", config_dir=str(repo / "configs"),
                          minimal_config=str(repo / "minimal_config.yml"))
-    write_face_set(root, 1, config["image_size"], seed)
+    write_image_set(root, 1, config["image_size"], seed)
     model = GAN2Shape(config, device="cpu")
     init = torch.Generator().manual_seed(seed)
     model.init_params(init)
@@ -3610,7 +3650,7 @@ def write_reference_assets(root, seed):
         os.makedirs(os.path.join(root, "checkpoints", sub))
     torch.save({"g_ema": model.generator.state_dict(),
                 "d": model.discriminator.state_dict()},
-               os.path.join(root, GAN_CKPTS["face"]))
+               os.path.join(root, config["gan_ckpt_path"]))
     write_reference_lpips(
         os.path.join(root, "checkpoints", "vgg", "vgg16.pth"),
         os.path.join(root, "checkpoints", "lpips", "vgg.pth"), seed + 1)
@@ -3850,6 +3890,438 @@ def repeat_main():
     return 0
 
 
+# ---------------- phase 15: the other categories ----------------
+
+# configs/<category>.yml's widths: GAN size, channel multiplier, pseudo
+# samples a step-2 iteration
+CATEGORY_WIDTHS = {"cat": (256, 1, 16), "church": (256, 2, 8),
+                   "car": (512, 2, 8)}
+CATEGORY_PRIOR = "smoothed_box"  # the prior of BASELINE.json's targets
+CATEGORY_IMAGES = 8     # each written set: car's --generalize batch
+CATEGORY_GENERALIZING_STAGE = {"step1": 5, "step2": 1, "step3": 1}
+CATEGORY_AT_ONCE = ("church", "car")  # instance-parallel at N=2, then N
+CATEGORY_NS = (8, 4)    # the N tried after N=2, the largest first
+CATEGORY_HEADROOM = 0.9  # the share of the card's memory an N may take
+CATEGORY_N_ITERS = 5    # the large N's timed block, iterations a step
+
+
+class OnesMasker:
+    """The all-ones masks of a category outside the VOC classes."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def confidence_mask(self, image):
+        import numpy as np
+        return np.ones((1, self.size, self.size), np.float32)
+
+    image_mask = confidence_mask
+
+
+def write_gan_checkpoint(filename, size, channel_multiplier, seed):
+    """A seeded random StyleGAN2 checkpoint in the reference's layout
+    ({"g_ema", "d"}, the generator's noise buffers included) at `size` and
+    `channel_multiplier`.  Returns what it wrote."""
+    import os
+
+    import torch
+    from gan2shape_torch.models.layers import reset_parameters
+    from gan2shape_torch.models.stylegan2 import Discriminator, Generator
+
+    g = torch.Generator().manual_seed(seed)
+    gen = Generator(size, 512, 8, channel_multiplier)
+    disc = Discriminator(size, channel_multiplier)
+    reset_parameters(gen, g)
+    reset_parameters(disc, g)
+    with torch.no_grad():
+        for buf, n in zip(gen.noise_list(), gen.make_noise(g)):
+            buf.copy_(n)
+    ckpt = {"g_ema": gen.state_dict(), "d": disc.state_dict()}
+    os.makedirs(os.path.dirname(filename), exist_ok=True)
+    torch.save(ckpt, filename)
+    return ckpt
+
+
+def write_parsing_checkpoint(category, image, seed):
+    """checkpoints/parsing/pspnet_voc.pth of seeded random PSPNet-50
+    weights.  For a VOC category the final bias of its class is raised by
+    the median of the margin by which it loses on `image`, so that it wins
+    on about half of the net's pixels there: random weights alone may never
+    pick the class, and the masker would then give its all-ones mask."""
+    import os
+
+    import numpy as np
+    import torch
+    from gan2shape_torch.core import masking as M
+
+    sd = random_parsing_state_dict(category, seed)
+    if category in M.CATEGORY2NUMBER:
+        k = M.CATEGORY2NUMBER[category]
+        out = M.MaskingModel(category, 128, state_dict=sd,
+                             device="cuda").logits(image[None])[0]
+        margin = np.delete(out, k, axis=0).max(0) - out[k]
+        sd["cls.4.bias"][k] += float(np.median(margin))
+    os.makedirs(os.path.join("checkpoints", "parsing"), exist_ok=True)
+    torch.save({"state_dict": {f"module.{k}": v for k, v in sd.items()}},
+               M.checkpoint_path(category))
+
+
+def free_card():
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def peak_gib():
+    import torch
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def step2_gflop(trainer, img, lat, collected):
+    """GFLOP of one step-2 iteration's forward and backward (not its pool's
+    render), as torch.utils.flop_counter counts them: the convolutions and
+    matrix products, on this trainer's shapes."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    model = trainer.model
+    inv = model.step2_invariants(lat)
+    pool = model.step2_sample(trainer.sampler, collected,
+                              trainer.n_proj_samples)
+    counter = FlopCounterMode(display=False)
+    with counter:
+        loss, _ = model.step2_loss(lat, *pool, inv)
+        loss.sum().backward()
+    model.zero_grad(set_to_none=True)
+    return counter.get_total_flops() / 1e9
+
+
+def run_categories(card):
+    """Phase 15: the method at the cat, church and car configs, each in a
+    temporary folder of its own, after the FLOP count of face-128's step 2
+    for comparison.  Returns {category: the launch counts of its cli.train
+    instance run}."""
+    import numpy as np
+    import torch
+    from gan2shape_torch.core.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    face = Trainer(FACE128, seed=0)
+    rng = np.random.default_rng(0)
+    img = torch.as_tensor(rng.uniform(-1, 1, (1, 3, 128, 128)).astype(
+        np.float32), device="cuda")
+    lat = torch.as_tensor(rng.standard_normal((1, 512)).astype(np.float32),
+                          device="cuda")
+    collected, _ = face.run_step1(img, 0)
+    print(f"FLOP face-128 step2: {step2_gflop(face, img, lat, collected):.1f}"
+          f" GFLOP an iteration (torch.utils.flop_counter)", flush=True)
+    del face
+    free_card()
+    launches = {}
+    for i, category in enumerate(CATEGORY_WIDTHS):
+        t0 = time.perf_counter()
+        launches[category] = run_category(category, 30 + 10 * i, card)
+        print(f"TIME category {category}: {time.perf_counter() - t0:.2f} s "
+              f"wall ({card})", flush=True)
+    print(f"TIME categories phase: {time.perf_counter() - t_phase:.2f} s "
+          f"wall ({card})", flush=True)
+    return launches
+
+
+def run_category(category, seed, card):
+    """One category: its config from load_config (the prior, as --prior
+    smoothed_box gives it, and the depth overridden), the reference-layout
+    files written (an image set, the GAN checkpoint, the PSPNet parsing
+    file), cli.train in instance mode and cli.evaluate, timed blocks of
+    each step, car's --generalize, and for church and car instances at
+    once."""
+    import os
+    import tempfile
+    from pathlib import Path
+
+    from gan2shape_torch.cli import evaluate as E
+    from gan2shape_torch.cli import train as T
+    from gan2shape_torch.core import checkpoint as C
+    from gan2shape_torch.core.dataset import ImageLatentDataset
+    from gan2shape_torch.core.trainer import GeneralizingTrainer
+    from gan2shape_torch.ops import _cuda
+    from gan2shape_torch.utils.config import load_config
+
+    root = Path(__file__).resolve().parent
+    here = os.getcwd()
+    gan_size, cm, n_proj = CATEGORY_WIDTHS[category]
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)  # the config's relative paths and results/ live here
+        try:
+            config = load_config(
+                category=category, config_dir=str(root / "configs"),
+                minimal_config=str(root / "minimal_config.yml"),
+                overrides={"prior_name": CATEGORY_PRIOR,
+                           "n_epochs_prior": FACE128["n_epochs_prior"],
+                           "n_epochs_generalized": 1})
+            check(config["image_size"] == 128
+                  and (config["gan_size"], config["channel_multiplier"],
+                       config["n_proj_samples"]) == (gan_size, cm, n_proj)
+                  and config["z_dim"] == 512
+                  and config.get("lpips_net", "vgg") == "vgg"
+                  and config.get("disc_ftr_num", 4) == 4,
+                  f"{category} config from load_config: image "
+                  f"{config['image_size']}, GAN {config['gan_size']}, "
+                  f"channel_multiplier {config['channel_multiplier']}, "
+                  f"n_proj_samples {config['n_proj_samples']}, z "
+                  f"{config['z_dim']}, LPIPS-"
+                  f"{config.get('lpips_net', 'vgg')}, disc_ftr_num "
+                  f"{config.get('disc_ftr_num', 4)}, prior "
+                  f"{config['prior_name']}, GAN checkpoint "
+                  f"{config['gan_ckpt_path']}")
+            t0 = time.perf_counter()
+            write_image_set(".", CATEGORY_IMAGES, 128, seed, category)
+            data = ImageLatentDataset(os.path.join("data", category),
+                                      image_size=128)
+            gan = write_gan_checkpoint(config["gan_ckpt_path"], gan_size, cm,
+                                       seed)
+            write_parsing_checkpoint(category, data[0][0], seed)
+            print(f"{category}: {CATEGORY_IMAGES} images, the GAN checkpoint "
+                  f"and the parsing file written in "
+                  f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+            trainer, launches, prior = category_instance(
+                T, E, C, _cuda, config, gan, data)
+            category_timing(trainer, data, prior, card)
+            del trainer
+            free_card()
+            if category == "car":
+                generalizing(T, C, GeneralizingTrainer, _cuda,
+                             dict(config, batch_size=CATEGORY_IMAGES), data,
+                             card, stage=CATEGORY_GENERALIZING_STAGE,
+                             flags=["--prior", CATEGORY_PRIOR])
+                free_card()
+            if category in CATEGORY_AT_ONCE:
+                category_instances(config, data, card)
+        finally:
+            os.chdir(here)
+            free_card()
+    return launches
+
+
+def category_instance(T, E, C, _cuda, config, gan, data):
+    """cli.train --category <c> --prior smoothed_box --save-ckpts --images
+    0 and cli.evaluate --record-loss (phase 7's checks), with the GAN
+    checkpoint that build_frozen_assets loaded held against the written
+    one and the prior held to the masker's.  Returns (the trainer, the
+    launch counts of cli.train, image 0's prior)."""
+    import numpy as np
+    import torch
+    from gan2shape_torch.core import masking as M
+    from gan2shape_torch.core.priors import FallbackMasker, PriorGenerator
+    from gan2shape_torch.core.trainer import Trainer
+
+    category = config["category"]
+    seen = []
+
+    def recording(real):
+        def run_prior(self, images, priors, n_iters):
+            seen.append((self.prior_generator.masking_model,
+                         priors.detach().cpu().numpy()))
+            return real(self, images, priors, n_iters)
+        return run_prior
+
+    with patched(Trainer, "run_prior", recording), \
+            LogLines("gan2shape_torch.convert.reference") as log:
+        trainer, launches, history = instance_and_evaluation(
+            T, E, C, _cuda, config, images=(0,),
+            flags=["--prior", CATEGORY_PRIOR])
+    loaded = [line for line in log if line.startswith("loaded GAN")]
+    same = all(torch.equal(v.cpu(), gan[key][k])
+               for key, net in (("g_ema", trainer.model.generator),
+                                ("d", trainer.model.discriminator))
+               for k, v in net.state_dict().items())
+    check(len(loaded) == 2 and not any("not found" in line and "GAN" in line
+                                       for line in log) and same,
+          f"{category}: the written GAN checkpoint ({config['gan_size']}^2, "
+          f"channel_multiplier {config['channel_multiplier']}, "
+          f"{trainer.model.generator.n_latent} latents) loaded by "
+          f"cli.train and cli.evaluate ({loaded[:1]}), the trainer's G and "
+          f"D bit-equal to it")
+
+    (masker, prior), = seen
+    image = data[0][0]
+    size = config["image_size"]
+
+    def prior_of(m):
+        return PriorGenerator(size, category, CATEGORY_PRIOR,
+                              masking_model=m)(image)[0]
+
+    share = float((np.asarray(masker.image_mask(image[None])) > 0.5).mean())
+    ones = np.abs(prior - prior_of(OnesMasker(size))).max()
+    fallback = np.abs(prior - prior_of(FallbackMasker(size))).max()
+    if category in M.CATEGORY2NUMBER:
+        ok = 0 < share < 1 and ones > 1e-3 and fallback > 1e-3
+        what = (f"{share:.3f} of the image in the hard mask; "
+                f"{ones:.3e} from the all-ones mask's prior")
+    else:
+        ok = share == 1 and ones == 0 and fallback > 1e-3
+        what = "the all-ones mask of a category outside VOC's (bit-equal)"
+    check(isinstance(masker, M.MaskingModel) and ok,
+          f"{category}: the {CATEGORY_PRIOR} prior from the written PSPNet: "
+          f"{what}; {fallback:.3e} from the fallback masker's")
+    return trainer, launches, torch.as_tensor(prior, device="cuda")
+
+
+def category_timing(trainer, data, prior, card):
+    """Phase 6's timed blocks and profiler windows on the category's
+    trained instance, the peak memory over the blocks and the instance
+    time the schedule projects; car's step 2 also under 'high'."""
+    import numpy as np
+    import torch
+    from gan2shape_torch.utils import precision as P
+
+    category = trainer.category
+    image, latent, _ = data[0]
+    img = torch.as_tensor(image, device="cuda")[None]
+    lat = torch.as_tensor(np.asarray(latent).reshape(1, -1), device="cuda")
+    free_card()
+    per_step, losses, collected, coll2 = timed_steps(
+        trainer, img, lat, prior, TIMED_ITERS)
+    peak = peak_gib()
+    check(all(math.isfinite(float(x)) for x in sum(losses, [])),
+          f"{category} timed-block losses finite")
+    step_ms = {k: v[0] for k, v in per_step.items()}
+    for name, ms in step_ms.items():
+        print(f"STEP {category} {name}: {ms:.2f} ms/iter over {TIMED_ITERS} "
+              f"iterations", flush=True)
+    instance_s = sum(k * step_ms[s] for s, k in SCHEDULE.items()) / 1e3
+    print(f"INSTANCE {category} {instance_s:.1f} s projected for the "
+          f"schedule {SCHEDULE}; peak memory {peak:.2f} GiB over the blocks "
+          f"(torch.cuda.max_memory_allocated); {card}", flush=True)
+    busy = profile_steps(trainer, img, lat, prior, collected, coll2, step_ms,
+                         label=f"{category} ")
+    gflop = step2_gflop(trainer, img, lat, collected)
+    rate = (f"{gflop / busy['step2']:.2f} TFLOP/s of its device-busy time"
+            if busy.get("step2") else "device busy not measured")
+    print(f"FLOP {category} step2: {gflop:.1f} GFLOP an iteration "
+          f"(torch.utils.flop_counter): {gflop / step_ms['step2']:.2f} "
+          f"TFLOP/s over its {step_ms['step2']:.2f} ms/iter, {rate}",
+          flush=True)
+    if category == "car":
+        with P.policy("high"):
+            trainer.run_step2(img, lat, collected, 1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, l2 = trainer.run_step2(img, lat, collected, TIMED_ITERS)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3 / TIMED_ITERS
+        check(all_finite([float(x) for x in l2])
+              and P.matmul_precision() == "highest",
+              "car step 2 under 'high': losses finite, the policy restored")
+        print(f"TIME car step2 under 'high': {ms:.2f} ms/iter over "
+              f"{TIMED_ITERS} iterations, against {step_ms['step2']:.2f} at "
+              f"'highest' ({card})", flush=True)
+
+
+def category_instances(config, data, card):
+    """InstanceParallelTrainer at N=2 on phase 9's fit, held to a
+    sequential Trainer (launches, iteration 0); then the largest N of
+    CATEGORY_NS that the peak memory of N=1 and N=2 says fits the card
+    with CATEGORY_HEADROOM, for one timed block."""
+    import numpy as np
+    import torch
+    from gan2shape_torch.convert.reference import build_frozen_assets
+    from gan2shape_torch.core.trainer import Trainer
+    from gan2shape_torch.ops import _cuda
+    from gan2shape_torch.parallel import InstanceParallelTrainer
+
+    category = config["category"]
+
+    def losses_of(history):
+        return [x for h in history for k in ("losses_step1", "losses_step2",
+                                             "losses_step3") for x in h[k]]
+
+    def instances(n):
+        trainer = InstanceParallelTrainer(config, n, seed=0)
+        build_frozen_assets(trainer.model, config)
+        images = np.stack([data[i][0] for i in range(n)])
+        latents = np.stack([np.asarray(data[i][1]).reshape(-1)
+                            for i in range(n)])
+        priors = np.stack([trainer.prior_generator(im)[0] for im in images])
+        return trainer, images, latents, priors
+
+    def iteration0(model, img):
+        with torch.no_grad():
+            loss, _ = model.step1_iter(img, model.step1_invariants(img))
+        return loss
+
+    seq = Trainer(config, seed=0)
+    build_frozen_assets(seq.model, config)
+    image, latent, _ = data[0]
+    img0 = torch.as_tensor(image, device="cuda")[None]
+    alone = float(iteration0(seq.model, img0))
+    free_card()
+    _cuda.reset_launches()
+    seq_losses = losses_of(seq.fit([(image, latent, 0)], stages=[STAGE]))
+    torch.cuda.synchronize()
+    seq_launches = dict(_cuda.LAUNCHES)
+    p1 = peak_gib()
+    del seq
+    free_card()
+
+    trainer, images, latents, priors = instances(2)
+    batched = iteration0(trainer.model, torch.as_tensor(images,
+                                                        device="cuda"))
+    rel = abs(float(batched[0]) - alone) / abs(alone)
+    check(batched.shape == (2,) and rel <= 1e-5,
+          f"{category} instance 0's step-1 iteration-0 loss "
+          f"{float(batched[0]):.7f} at N=2 against a sequential Trainer's "
+          f"{alone:.7f} from the same init: {rel:.2e} relative (<= 1e-5)")
+    free_card()
+    history, launches, fit_s = counted_fit(trainer, images, latents, priors)
+    p2 = peak_gib()
+    losses = losses_of(history)
+    same = {k: (launches[k], seq_launches[k]) for k in MAIN_PATH}
+    check(len(history) == 2 and all_finite(losses + seq_losses)
+          and all(a == b > 0 for a, b in same.values()),
+          f"{category} N=2 fit in {fit_s:.2f} s and a sequential Trainer's "
+          f"fit of one instance, {len(losses)} + {len(seq_losses)} losses "
+          f"finite; each kernel launched as often at N=2 as for one "
+          f"instance (N=2, one): {same}")
+    del trainer
+    free_card()
+
+    total = torch.cuda.get_device_properties(0).total_memory / 2 ** 30
+    per = p2 - p1
+    reckoned = {n: p1 + (n - 1) * per for n in CATEGORY_NS}
+    fits = [n for n in CATEGORY_NS if reckoned[n] <= CATEGORY_HEADROOM * total]
+    n = fits[0] if fits else 2
+    print(f"MEMORY {category}: peak {p1:.2f} GiB for one instance's fit, "
+          f"{p2:.2f} at N=2 ({per:.2f} an instance); reckoned "
+          + ", ".join(f"N={k} {v:.2f}" for k, v in reckoned.items())
+          + f" GiB against {CATEGORY_HEADROOM:.0%} of {total:.2f}: N={n}",
+          flush=True)
+    trainer, images, latents, priors = instances(n)
+    img = torch.as_tensor(images, device="cuda")
+    lat = torch.as_tensor(latents, device="cuda")
+    prior = torch.as_tensor(priors, device="cuda")
+    free_card()
+    per_step, _, timed_losses = timed_instance_steps(trainer, img, lat, prior,
+                                                     CATEGORY_N_ITERS)
+    peak = peak_gib()
+    check(all(bool(torch.isfinite(x).all()) for x in timed_losses)
+          and peak <= CATEGORY_HEADROOM * total,
+          f"{category} N={n}: timed-block losses finite, peak memory "
+          f"{peak:.2f} GiB (reckoned {reckoned.get(n, p2):.2f}) within "
+          f"{CATEGORY_HEADROOM:.0%} of the card's {total:.2f}")
+    for name, ms in per_step.items():
+        print(f"STEP {category} instances {name}: {ms:.2f} ms/iter for {n} "
+              f"instances ({ms / n:.2f} an instance) over "
+              f"{CATEGORY_N_ITERS} iterations", flush=True)
+    projected = sum(c * per_step[s] for s, c in SCHEDULE.items()) / 1e3 / n
+    print(f"INSTANCE {category} {projected:.1f} s projected per instance at "
+          f"N={n} for the schedule {SCHEDULE}; peak memory {peak:.2f} GiB; "
+          f"{card}", flush=True)
+
+
 def main(argv):
     import torch
 
@@ -3863,13 +4335,15 @@ def main(argv):
     distributed_only = argv == ["--distributed"] or planted
     tools_only = argv == ["--tools"]
     repeat_only = argv == ["--repeat"]
+    categories_only = argv == ["--categories"]
     splat_times = argv[1] if len(argv) == 2 and argv[0] == "--splat-times" \
         else None
     if argv and not (kernels_only or precision_only or distributed_only
-                     or tools_only or repeat_only or splat_times):
+                     or tools_only or repeat_only or categories_only
+                     or splat_times):
         print(f"usage: python3 chip_smoke.py [--kernels | --precision | "
               f"--distributed | --distributed-planted | --tools | --repeat "
-              f"| --splat-times FILE] (got {argv})")
+              f"| --categories | --splat-times FILE] (got {argv})")
         return 2
     if not torch.cuda.is_available():
         print("FAIL no CUDA device: this smoke run needs one GPU",
@@ -3917,6 +4391,8 @@ def main(argv):
             run_tools(card)
         elif repeat_only:
             run_repeat(card)
+        elif categories_only:
+            category_launches = run_categories(card)
         elif not kernels_only:
             check_raster_gradients()
             check_launches = run_check_path(results)
@@ -3930,6 +4406,7 @@ def main(argv):
             rank_launches = run_distributed(card)
             bench_launches = run_tools(card)
             run_repeat(card)
+            category_launches = run_categories(card)
     except Failed:
         return 1
     except RuntimeError as exc:  # a timing that found no device activity
@@ -3938,11 +4415,15 @@ def main(argv):
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         if (kernels_only or precision_only or distributed_only or tools_only
-                or repeat_only):
-            # no main path: no launch counts
+                or repeat_only or categories_only):
+            # no main path: no launch counts (the categories' own apart)
             if name in results:
-                kernels.append({"name": name, "source": source,
-                                "launches": None, **results[name]})
+                extra = {f"launches_{c}": n[name] for c, n in
+                         category_launches.items()} if categories_only \
+                    and name not in SERVED_BY else {}
+                kernels.append({"name": name, "route": "cuda",
+                                "source": source, "replaces": replaces,
+                                "launches": None, **results[name], **extra})
             continue
         # each entry's launches on the path that is its own: raster_mega's,
         # those of the kernels that serve it on the rasterizer check; the
@@ -3962,6 +4443,8 @@ def main(argv):
             extra[f"launches_{N_INSTANCES}_instances_per_rank"] = [
                 rank_launches[r][name] for r in sorted(rank_launches)]
             extra["launches_bench"] = bench_launches[name]
+            for c, counts in category_launches.items():
+                extra[f"launches_{c}"] = counts[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": n,
                         **results[name], **extra})

@@ -37,22 +37,26 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from gan2shape_torch.utils.config import load_config
+
 REPO = Path(__file__).resolve().parents[2]
 
-GAN_CKPTS = {  # the reference configs' gan_ckpt_path per category
-    "face": "checkpoints/stylegan2/stylegan2-celeba-config-e.pt",
-    "cat": "checkpoints/stylegan2/stylegan2-cat-config-f.pt",
-    "car": "checkpoints/stylegan2/stylegan2-car-config-e.pt",
-    "church": "checkpoints/stylegan2/stylegan2-church-config-e.pt",
-}
 FAST_PRIOR = 50
 FAST_STAGES = [{"step1": 20, "step2": 20, "step3": 20}]
 
 
+def category_config(category):
+    """The category's config as the run reads it: the repository's
+    configs/<category>.yml over minimal_config.yml."""
+    return load_config(category=category, config_dir=str(REPO / "configs"),
+                       minimal_config=str(REPO / "minimal_config.yml"))
+
+
 def required_assets(category):
-    """(path, purpose) for everything the real run needs."""
+    """(path, purpose) for everything the real run needs; the StyleGAN2
+    file is the one the category's config names (its gan_ckpt_path)."""
     return [
-        (GAN_CKPTS.get(category, GAN_CKPTS["face"]),
+        (category_config(category)["gan_ckpt_path"],
          "pretrained StyleGAN2 g_ema/d (reference model.py:31-35)"),
         ("checkpoints/view_light/view_mvn.pth",
          "view MVN stats (reference model.py:449-456)"),
@@ -88,12 +92,9 @@ def reconstruct(args):
     from gan2shape_torch.device import resolve_device, synchronize
     from gan2shape_torch.tools.full_instance_run import FULL_STAGES
     from gan2shape_torch.utils import plotting
-    from gan2shape_torch.utils.config import load_config
 
     device = resolve_device(args.device)  # before any file is read
-    config = load_config(category=args.category,
-                         config_dir=str(REPO / "configs"),
-                         minimal_config=str(REPO / "minimal_config.yml"))
+    config = category_config(args.category)
     out_dir = os.path.join("results", "real_assets", args.category)
     os.makedirs(out_dir, exist_ok=True)
     data = ImageLatentDataset(os.path.join(config["root_path"],

@@ -205,8 +205,9 @@ def plot_originals_v_reconstructions(originals, reconstructions, n=4):
         return
     _ensure_dirs()
     n = min(n, len(originals))
-    fig, axes = plt.subplots(2, n, figsize=(3 * n, 6))
-    axes = np.atleast_2d(axes)
+    # (2, n) axes for any n: with n = 1, subplots would return a column
+    # that np.atleast_2d turns into a (1, 2) row
+    fig, axes = plt.subplots(2, n, figsize=(3 * n, 6), squeeze=False)
     for i in range(n):
         axes[0, i].imshow(to_image(originals[i]))
         axes[1, i].imshow(to_image(reconstructions[i]))

@@ -554,6 +554,21 @@ def test_cli_train_then_evaluate_on_cpu(face_set, monkeypatch):
     assert os.path.exists("results/index.html")
 
 
+@pytest.mark.parametrize("n", [1, 2, 5])
+def test_originals_v_reconstructions_plot_any_count(tmp_path, monkeypatch,
+                                                    n):
+    """cli.evaluate's closing plot, for one image too (`--images 0`): the
+    JAX package's version indexes a (1, 2) row of axes as (2, 1) there."""
+    from gan2shape_torch.utils import plotting
+
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(n)
+    images = [rng.uniform(-1, 1, (3, 16, 16)).astype(np.float32)
+              for _ in range(n)]
+    plotting.plot_originals_v_reconstructions(images, images[::-1])
+    assert os.path.getsize("results/plots/originals_v_reconstructions.png")
+
+
 def test_cli_generalize_resume_and_general_evaluation_on_cpu(face_set):
     tmp_path, config = face_set
     args = t_train.parse_args(["--category", "face", "--save-ckpts",

@@ -1,13 +1,22 @@
 """The port's method against the JAX package's where the GAN synthesises
 at a larger size than the image it trains at (`gan_size > image_size`, as
-the cat, church and car configs do): image 64, GAN 128, category `cat`,
-`disc_ftr_num` 3, on one JAX init brought over through the bridge.
+the cat, church and car configs do), at image 64 and `disc_ftr_num` 3, in
+three cases of the categories' shapes cut to size:
+
+  cat     GAN 128, channel multiplier 1 (2:1, configs/cat.yml's width);
+  church  GAN 128, channel multiplier 2 (2:1, configs/church.yml's width);
+  car     GAN 256, channel multiplier 2 (4:1, configs/car.yml's ratio and
+          width).
 
 Step 2 then shrinks the synthesis and the inversion by area resize, and
 feeds image-size inputs to a discriminator built at the GAN size through
-the `ftr_num` early exit.  The bounds are test_torch_method.py's:
-iteration-0 step 1 and step 3 within 2e-6 relative, step 2 with one
-injected pseudo-sample pool and its projected image within 1e-4 absolute.
+the `ftr_num` early exit.  The five nets and LPIPS are one JAX init; the
+GAN is a seeded port init with its parameters moved off their init values
+(non-zero noise strengths and biases); both go through the bridge, so the
+two packages hold the same weights.  The bounds are
+test_torch_method.py's: iteration-0 step 1 and step 3 within 2e-6
+relative, step 2 with one injected pseudo-sample pool and its projected
+image within 1e-4 absolute.
 """
 
 import numpy as np
@@ -16,18 +25,18 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from gan2shape_tpu.convert import torch2jax
 from gan2shape_tpu.core.model import GAN2Shape as JModel
 
 from gan2shape_torch.convert import jax2torch
 from gan2shape_torch.core.model import GAN2Shape
+from gan2shape_torch.models.layers import reset_parameters
 
 S = 64
-CFG = {
-    "image_size": S, "gan_size": 128, "z_dim": 512,
-    "channel_multiplier": 1, "category": "cat", "disc_ftr_num": 3,
-    "rot_center_depth": 1.0, "fov": 10,
-}
-N_PROJ = 3
+BASE = {"image_size": S, "z_dim": 512, "disc_ftr_num": 3,
+        "rot_center_depth": 1.0, "fov": 10}
+# category: (gan_size, channel_multiplier, pseudo samples in step 2)
+CASES = {"cat": (128, 1, 3), "church": (128, 2, 2), "car": (256, 2, 2)}
 
 
 def T(a):
@@ -50,16 +59,42 @@ def _two_torch_threads():
 
 
 @pytest.fixture(scope="module")
-def env(_two_torch_threads):
-    jm = JModel(CFG)
+def shared(_two_torch_threads):
+    """The JAX init of what does not depend on the GAN: the five nets and
+    LPIPS (image 64 in every case)."""
+    jm = JModel(dict(BASE, gan_size=S, channel_multiplier=1))
     params = jm.init_params(jax.random.PRNGKey(0))
-    frozen = jm.init_frozen(jax.random.PRNGKey(1))
-    tm = GAN2Shape(CFG, device="cpu")
+    lpips = jm.lpips.init(jax.random.PRNGKey(1), jnp.zeros((1, 3, S, S)),
+                          jnp.zeros((1, 3, S, S)))
+    return params, lpips
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def env(request, shared):
+    category = request.param
+    gan_size, cm, n_proj = CASES[category]
+    cfg = dict(BASE, gan_size=gan_size, channel_multiplier=cm,
+               category=category)
+    params, lpips = shared
+    tm = GAN2Shape(cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    reset_parameters(tm.generator, g)
+    reset_parameters(tm.discriminator, g)
+    with torch.no_grad():
+        for buf, n in zip(tm.generator.noise_list(),
+                          tm.generator.make_noise(g)):
+            buf.copy_(n)
+        for p in tm.generator.parameters():
+            p.add_(0.1 * torch.randn(p.shape, generator=g))
+    gen, noise = torch2jax.convert_generator(tm.generator.state_dict())
+    frozen = {"generator": gen, "noise": noise, "lpips": lpips,
+              "discriminator": torch2jax.convert_discriminator(
+                  tm.discriminator.state_dict())}
     jax2torch.load_into(tm, params, frozen)
     rng = np.random.default_rng(0)
     image = rng.uniform(-1, 1, (1, 3, S, S)).astype(np.float32)
     latent = rng.standard_normal((1, 512)).astype(np.float32)
-    return jm, params, frozen, tm, image, latent
+    return JModel(cfg), params, frozen, tm, image, latent, n_proj
 
 
 def _pool(n, seed):
@@ -70,13 +105,15 @@ def _pool(n, seed):
 
 
 def test_gan_larger_than_image_builds_at_gan_size(env):
-    _, _, _, tm, _, _ = env
-    assert tm.gan_size == 128 and tm.image_size == S
-    assert tm.generator.size == 128
+    jm, _, _, tm, _, _, _ = env
+    assert tm.gan_size == jm.gan_size > tm.image_size == S
+    assert tm.generator.size == tm.gan_size
+    assert tm.generator.n_latent == 2 * int(np.log2(tm.gan_size)) - 2
+    assert len(tm.generator.noise_list()) == tm.generator.num_layers
 
 
 def test_step1_loss_matches_jax_gan_larger_than_image(env):
-    jm, params, frozen, tm, image, _ = env
+    jm, params, frozen, tm, image, _, _ = env
     jl, _ = jm.forward_step1(params, frozen, jnp.asarray(image))
     with torch.no_grad():
         tl, _ = tm.forward_step1(T(image))
@@ -84,8 +121,8 @@ def test_step1_loss_matches_jax_gan_larger_than_image(env):
 
 
 def test_step2_loss_and_projection_match_jax_gan_larger_than_image(env):
-    jm, params, frozen, tm, _, latent = env
-    pseudo, mask = _pool(N_PROJ, 1)
+    jm, params, frozen, tm, _, latent, n_proj = env
+    pseudo, mask = _pool(n_proj, 1)
     jinv = jm.step2_invariants(frozen, jnp.asarray(latent))
     jl, (jproj, _) = jm.step2_loss(params, frozen, jnp.asarray(latent),
                                    jnp.asarray(pseudo), jnp.asarray(mask),
@@ -93,9 +130,9 @@ def test_step2_loss_and_projection_match_jax_gan_larger_than_image(env):
     with torch.no_grad():
         tinv = tm.step2_invariants(T(latent))
         tl, (tproj, _) = tm.step2_loss(T(latent), T(pseudo), T(mask), tinv)
-    # the synthesis is resized from the GAN's 128 to the image's 64
+    # the synthesis is resized from the GAN's size to the image's 64
     assert tuple(tinv["gan_im"].shape) == (1, 3, S, S)
-    assert tuple(tproj.shape) == (N_PROJ, 3, S, S)
+    assert tuple(tproj.shape) == (n_proj, 3, S, S)
     np.testing.assert_allclose(tinv["gan_im"].numpy(),
                                np.asarray(jinv["gan_im"]), atol=1e-4)
     assert abs(float(tl) - float(jl)) <= 1e-4, (float(tl), float(jl))
@@ -103,8 +140,8 @@ def test_step2_loss_and_projection_match_jax_gan_larger_than_image(env):
 
 
 def test_step3_loss_matches_jax_gan_larger_than_image(env):
-    jm, params, frozen, tm, image, latent = env
-    proj, mask = _pool(N_PROJ, 2)
+    jm, params, frozen, tm, image, latent, n_proj = env
+    proj, mask = _pool(n_proj, 2)
     jl, _ = jm.forward_step3(params, frozen, jnp.asarray(image),
                              jnp.asarray(latent),
                              (jnp.asarray(proj), jnp.asarray(mask)))
