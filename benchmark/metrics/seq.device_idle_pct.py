@@ -1,0 +1,6 @@
+"""`device_idle_pct` in the cells that train one image after another, where it moves
+`seq.instance_s`: the same reader."""
+
+from benchmark.spec import load_reader
+
+read = load_reader("device_idle_pct")
