@@ -1,11 +1,10 @@
 """Gradient-flow diagnostics for `--debug` (the global L2 norm of each
-net's gradient, and a log line per net, a warning where it is zero), a
-profiler trace context and a per-block timer."""
+net's gradient, and a log line per net, a warning where it is zero), the
+program's spans, and a profiler trace context that records them."""
 
 import contextlib
 import logging
 import os
-import time
 
 import torch
 
@@ -38,6 +37,21 @@ def report_grad_norms(norms, step_name=""):
             log.info("%s: |grad %s| = %.3e", step_name, name, v)
 
 
+SPAN_PREFIX = "g2s."
+_OFF = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def span(name):
+    """A profiler annotation `g2s.<name>` around a phase of the program,
+    on the profiler's clock with the device's activities; while no torch
+    profiler records, a shared no-op context that costs one check.  A
+    span never synchronises and never touches the device."""
+    if not _profiling():
+        return _OFF
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
 def _sync():
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -46,8 +60,9 @@ def _sync():
 @contextlib.contextmanager
 def profile_trace(logdir="results/profile", enabled=True):
     """A torch.profiler window (the host, and the card when there is one)
-    written as a Chrome trace `trace_rank{r}.json` under `logdir`; yields
-    the profiler (None when disabled, which does nothing)."""
+    written as a Chrome trace `trace_rank{r}.json` under `logdir`, the
+    program's spans among its annotations; yields the profiler (None when
+    disabled, which does nothing)."""
     if not enabled:
         yield None
         return
@@ -63,25 +78,3 @@ def profile_trace(logdir="results/profile", enabled=True):
     path = os.path.join(logdir, f"trace_rank{distributed.rank()}.json")
     prof.export_chrome_trace(path)
     log.info("profile trace written to %s", path)
-
-
-class StepTimer:
-    """Wall-clock time of named blocks, each ended by a synchronisation
-    with the card when one is in use."""
-
-    def __init__(self):
-        self.records = []
-
-    @contextlib.contextmanager
-    def time(self, name, n_iters=1):
-        _sync()
-        t0 = time.perf_counter()
-        yield
-        _sync()
-        dt = time.perf_counter() - t0
-        self.records.append(
-            {"name": name, "seconds": dt, "iters": n_iters,
-             "iters_per_sec": n_iters / dt if dt > 0 else float("inf")})
-
-    def summary(self):
-        return self.records

@@ -10,6 +10,13 @@ AdamW).  The prior pretraining uses a fresh Adam over the depth net.
 Randomness: the step-2 pseudo samples come from the trainer's device
 generator (seed + 1) and the `shuffle` order from its host generator
 (seed + 2).  Neither is the JAX package's PRNG stream.
+
+Spans (`diagnostics.span`, recorded only while a torch profiler runs):
+each iteration of a runner is `g2s.<step>.forward` (the model call that
+makes the loss), `g2s.<step>.backward` (zero_grad and backward) and
+`g2s.<step>.optimizer` (the Adam step), <step> one of prior, step1,
+step2, step3; a block's invariants are `g2s.step1.invariants` and
+`g2s.step2.invariants`, step 2's pool draw `g2s.step2.sample`.
 """
 
 import logging
@@ -19,6 +26,7 @@ import numpy as np
 import torch
 
 from gan2shape_torch.core.checkpoint import CheckpointManager, load_nets
+from gan2shape_torch.core.diagnostics import span
 from gan2shape_torch.core.model import GAN2Shape
 from gan2shape_torch.core.priors import PriorGenerator
 from gan2shape_torch import distributed
@@ -50,6 +58,9 @@ class Trainer:
     """Instance-mode trainer: `fit` trains each (image, latent, index) of
     its input in turn, batch 1: prior pretraining (unless resuming), then
     the stages."""
+
+    # the step whose runner is running: names `_step`'s spans
+    _phase = "prior"
 
     def __init__(self, model_config, debug=False, plot_intermediate=False,
                  log_wandb=False, save_ckpts=False, load_dict=None, seed=0,
@@ -108,9 +119,11 @@ class Trainer:
     def _step(self, loss, optimizer):
         """One update from the (n,) per-instance losses, summed: each
         instance's parameters get exactly their own loss's gradient."""
-        self.model.zero_grad(set_to_none=True)
-        loss.sum().backward()
-        optimizer.step()
+        with span(self._phase + ".backward"):
+            self.model.zero_grad(set_to_none=True)
+            loss.sum().backward()
+        with span(self._phase + ".optimizer"):
+            optimizer.step()
 
     def _order(self, n, shuffle):
         if shuffle:
@@ -123,9 +136,11 @@ class Trainer:
         """Fresh Adam over the depth net; returns the per-iteration
         losses (device tensors)."""
         opt = default_optimizer(self._params(("depth",)), self.learning_rate)
+        self._phase = "prior"
         losses = []
         for _ in range(n_iters):
-            loss, _ = self.model.depth_net_forward(images, priors)
+            with span("prior.forward"):
+                loss, _ = self.model.depth_net_forward(images, priors)
             self._step(loss, opt)
             losses.append(loss.detach())
         return losses
@@ -133,13 +148,16 @@ class Trainer:
     def run_step1(self, images, n_iters):
         """Returns (collected, losses).  With n_iters == 0 it only computes
         the collected state that step 2 consumes."""
-        inv = self.model.step1_invariants(images)
+        self._phase = "step1"
+        with span("step1.invariants"):
+            inv = self.model.step1_invariants(images)
         if n_iters == 0:
             with torch.no_grad():
                 _, albedo = self.model.step1_iter(images, inv)
         losses = []
         for _ in range(n_iters):
-            loss, albedo = self.model.step1_iter(images, inv)
+            with span("step1.forward"):
+                loss, albedo = self.model.step1_iter(images, inv)
             self._step(loss, self.optimizers[1])
             losses.append(loss.detach())
         collected = (inv["normal"], inv["light_a"], inv["light_b"],
@@ -149,27 +167,35 @@ class Trainer:
     def run_step2(self, image, latent, collected, n_iters):
         """Returns (collected2, losses).  The pseudo-sample pool is drawn at
         iterations i with i % pool_every == 0, and once for n_iters == 0."""
-        inv2 = self.model.step2_invariants(latent)
+        self._phase = "step2"
+        with span("step2.invariants"):
+            inv2 = self.model.step2_invariants(latent)
         n_proj = self.n_proj_samples
         if n_iters == 0:
-            pool = self.model.step2_sample(self.sampler, collected, n_proj)
+            with span("step2.sample"):
+                pool = self.model.step2_sample(self.sampler, collected,
+                                               n_proj)
             with torch.no_grad():
                 _, coll2 = self.model.step2_loss(latent, *pool, inv2)
             return coll2, []
         losses = []
         for i in range(n_iters):
             if i % self.pool_every == 0:
-                pool = self.model.step2_sample(self.sampler, collected,
-                                               n_proj)
-            loss, coll2 = self.model.step2_loss(latent, *pool, inv2)
+                with span("step2.sample"):
+                    pool = self.model.step2_sample(self.sampler, collected,
+                                                   n_proj)
+            with span("step2.forward"):
+                loss, coll2 = self.model.step2_loss(latent, *pool, inv2)
             self._step(loss, self.optimizers[2])
             losses.append(loss.detach())
         return coll2, losses
 
     def run_step3(self, image, latent, collected2, n_iters):
+        self._phase = "step3"
         losses = []
         for _ in range(n_iters):
-            loss, _ = self.model.forward_step3(image, latent, collected2)
+            with span("step3.forward"):
+                loss, _ = self.model.forward_step3(image, latent, collected2)
             self._step(loss, self.optimizers[3])
             losses.append(loss.detach())
         return losses
@@ -345,13 +371,17 @@ class GeneralizingTrainer(Trainer):
         a gradient)."""
         if not self.grouped:
             return super()._step(loss, optimizer)
-        self.model.zero_grad(set_to_none=True)
-        loss.sum().backward()
-        params = [p for g in optimizer.param_groups for p in g["params"]]
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
-        distributed.all_reduce_mean_(grads)
-        optimizer.step()
+        # the all-reduce completes the gradients: part of the backward span
+        with span(self._phase + ".backward"):
+            self.model.zero_grad(set_to_none=True)
+            loss.sum().backward()
+            params = [p for g in optimizer.param_groups
+                      for p in g["params"]]
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in params]
+            distributed.all_reduce_mean_(grads)
+        with span(self._phase + ".optimizer"):
+            optimizer.step()
 
     def run_prior(self, images, priors, n_iters):
         rows = self._rows(images.shape[0])

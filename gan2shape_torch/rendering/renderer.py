@@ -9,6 +9,10 @@ Conventions: pixel grid (x right, y down) with centers at integers;
 intrinsics from fov with c = (s-1)/2; view vector (rx, ry, rz, tx, ty, tz);
 rotation about the point (0, 0, rot_center_depth); screen grids normalised to
 [-1, 1] by (W-1, H-1), i.e. align_corners=True.
+
+Spans (`diagnostics.span`, recorded only while a torch profiler runs):
+`g2s.render.warp` around `warp_canon_depth`, `g2s.render.grid` around
+`get_inv_warped_2d_grid`, `g2s.render.view` around `render_given_view`.
 """
 
 import math
@@ -64,6 +68,9 @@ class Renderer:
 
     def __init__(self, config, image_size, min_depth, max_depth,
                  device=None):
+        # imported here: the core package imports this module
+        from gan2shape_torch.core.diagnostics import span
+        self.span = span
         self.device = resolve_device(device)
         self.image_size = image_size
         self.min_depth = min_depth
@@ -142,8 +149,9 @@ class Renderer:
             self.get_warped_3d_grid(depth, rot_mat, trans_xyz))
 
     def get_inv_warped_2d_grid(self, depth, rot_mat, trans_xyz):
-        return self.grid_3d_to_2d(
-            self.get_inv_warped_3d_grid(depth, rot_mat, trans_xyz))
+        with self.span("render.grid"):
+            return self.grid_3d_to_2d(
+                self.get_inv_warped_3d_grid(depth, rot_mat, trans_xyz))
 
     # ---------------- rasterization ----------------
 
@@ -158,18 +166,19 @@ class Renderer:
         """Re-render the canonical depth under a view, clamped to the depth
         range widened by the margin."""
         b, h, w = canon_depth.shape
-        pts = self.get_warped_3d_grid(canon_depth, rot_mat,
-                                      trans_xyz).reshape(b, -1, 3)
-        xs, ys, zs = self._project_screen(pts)
-        mode = raster_mode or self.raster_mode
-        window = self.raster_window if mode == "grid" \
-            else max(self.raster_window, 5)
-        lo = self.min_depth - self.margin
-        hi = self.max_depth + self.margin
-        depth = rasterize_depth(xs, ys, zs, self.faces, h, w, window=window,
-                                near=lo, far=hi, mode=mode,
-                                search=self.raster_search)
-        return torch.clamp(depth, lo, hi)
+        with self.span("render.warp"):
+            pts = self.get_warped_3d_grid(canon_depth, rot_mat,
+                                          trans_xyz).reshape(b, -1, 3)
+            xs, ys, zs = self._project_screen(pts)
+            mode = raster_mode or self.raster_mode
+            window = self.raster_window if mode == "grid" \
+                else max(self.raster_window, 5)
+            lo = self.min_depth - self.margin
+            hi = self.max_depth + self.margin
+            depth = rasterize_depth(xs, ys, zs, self.faces, h, w,
+                                    window=window, near=lo, far=hi,
+                                    mode=mode, search=self.raster_search)
+            return torch.clamp(depth, lo, hi)
 
     def render_mesh_rgb(self, im, pts, mask=None, background=1.0):
         """Rasterize an image (B, C, H, W) as the vertex colours of the mesh
@@ -219,18 +228,19 @@ class Renderer:
         depth, inverse-warp a sampling grid and grid-sample (the training
         path); otherwise rasterize the image as the warped mesh's vertex
         colours."""
-        rot_mat, trans_xyz = get_transform_matrices(view)
-        if grid_sample_mode:
-            recon_depth = self.warp_canon_depth(depth, rot_mat, trans_xyz,
-                                                raster_mode=raster_mode)
-            grid = self.get_inv_warped_2d_grid(recon_depth, rot_mat,
-                                               trans_xyz)
-            if mask is not None:
-                return grid_sample_im_mask(im, mask, grid)
-            return grid_sample(im, grid, mode="bilinear")
-        pts = self.get_warped_3d_grid(depth, rot_mat, trans_xyz)
-        img, m = self.render_mesh_rgb(im, pts, mask=mask)
-        return (img, m) if mask is not None else img
+        with self.span("render.view"):
+            rot_mat, trans_xyz = get_transform_matrices(view)
+            if grid_sample_mode:
+                recon_depth = self.warp_canon_depth(
+                    depth, rot_mat, trans_xyz, raster_mode=raster_mode)
+                grid = self.get_inv_warped_2d_grid(recon_depth, rot_mat,
+                                                   trans_xyz)
+                if mask is not None:
+                    return grid_sample_im_mask(im, mask, grid)
+                return grid_sample(im, grid, mode="bilinear")
+            pts = self.get_warped_3d_grid(depth, rot_mat, trans_xyz)
+            img, m = self.render_mesh_rgb(im, pts, mask=mask)
+            return (img, m) if mask is not None else img
 
     def _sweep(self, im, depth, axis, angles, v_before, v_after,
                grid_sample_mode, grid_3d):

@@ -26,7 +26,7 @@ through `convert/jax2torch.py`, written to a file the workers read.
         per-rank statistics;
   (vi)  `cli.train --distributed --n-instances 2` on 2 ranks: each
         instance's checkpoint written once, and read by `cli.evaluate`;
-  (vii) `StepTimer` and `profile_trace` on the CPU.
+  (vii) the spans (`diagnostics.span`) and `profile_trace` on the CPU.
 
 Measured on these inits: instance iteration-0 losses within 2.1e-7, curves
 1.6e-3 relative apart and nets 6.0e-4; generalizing curves 1.2e-3, nets
@@ -548,19 +548,24 @@ def test_cli_splits_instances_over_ranks(runs):
 # ---------------- (vii) diagnostics ----------------
 
 def test_step_timer_and_profile_trace(tmp_path):
-    timer = diagnostics.StepTimer()
-    with timer.time("matmul", n_iters=3):
-        for _ in range(3):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    (rec,) = timer.summary()
-    assert rec["name"] == "matmul" and rec["iters"] == 3
-    assert rec["seconds"] > 0 and rec["iters_per_sec"] > 0
+    """The spans that time the program's steps, in `profile_trace`'s
+    Chrome trace: `g2s.<name>` on the profiler's clock, around the work
+    done inside it; nothing recorded outside a profiler."""
     with diagnostics.profile_trace(str(tmp_path), enabled=False) as prof:
         assert prof is None
+        with diagnostics.span("step3.forward"):
+            torch.ones(8, 8) @ torch.ones(8, 8)
     assert not list(tmp_path.iterdir())
     with diagnostics.profile_trace(str(tmp_path / "p")) as prof:
-        torch.ones(32, 32) @ torch.ones(32, 32)
+        with diagnostics.span("step3.forward"):
+            for _ in range(3):
+                torch.ones(32, 32) @ torch.ones(32, 32)
     trace = tmp_path / "p" / "trace_rank0.json"
     events = json.loads(trace.read_text())["traceEvents"]
-    assert any("mm" in e.get("name", "") for e in events)
+    (sp,) = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"] == "g2s.step3.forward"]
+    mms = [e for e in events if e.get("name") == "aten::mm"]
+    assert len(mms) == 3
+    assert all(sp["ts"] <= e["ts"] and e["ts"] + e["dur"]
+               <= sp["ts"] + sp["dur"] for e in mms)
     assert any("mm" in e.key for e in prof.key_averages())
