@@ -20,6 +20,10 @@ Phases, each of which must pass:
      the kernel's own device time per launch (the splat's: its three
      kernels' a call), from torch.profiler by kernel name, and the least
      time the card could take for what the function must do on this data;
+     then the StyleGAN2 epilogue's pair (`bias_act`, `bias_act_grad`) at
+     car512's 512^2 and face128's 128^2 planes: forward bit-equal, grad_x
+     equal, repeated bit for bit, timed beside the plain chain, and its
+     host time a call beside the plain chain's;
   4. the rasterizer check (`gan2shape_torch.tools.check_raster`, the path of
      `raster_mega`, the counterpart of the JAX `_raster_mega_pallas`) at 64
      and 128 px, with the launch counts zeroed just before and read just
@@ -908,6 +912,108 @@ def check_window(results):
           f"{sorted({c[0] for c in captured})}", flush=True)
     check_splat_calls(synthetic_splat_calls() + captured, results)
     return captured
+
+
+# the StyleGAN2 epilogue's largest main-path planes: car512's 512^2 layer
+# at 64 images (car512-n8's step 2) and face128's 128^2 layer at 128
+# images (face128-n8's)
+BIAS_ACT_SHAPES = {"car512 512^2": (64, 64, 512, 512),
+                   "face128 128^2": (128, 128, 128, 128)}
+BIAS_ACT_HOST_SHAPE = (16, 512, 4, 4)  # face128's first layer, one instance
+BIAS_ACT_HOST_CALLS = 200
+
+
+def check_bias_act():
+    """The StyleGAN2 epilogue (ops/fused_act.py, csrc/bias_act.cu) against
+    the plain chain at the main path's largest planes: the forward bit for
+    bit, grad_x equal, grad_demod within a reduction-order tolerance, a
+    second call the same bits; each kernel timed beside the plain chain's
+    forward or backward and its byte bound.  Then the host time of one
+    call with gradients on, the wrapper against the plain chain, at the
+    smallest plane, where the host sets the pace."""
+    import torch
+    from gan2shape_torch.ops import fused_act as FA
+
+    slope, gain = 0.2, FA.SQRT2
+    for label, shape in BIAS_ACT_SHAPES.items():
+        b, c, h, w = shape
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(shape, device="cuda", generator=gen)
+        x[:, ::4, ::3, ::2] = 0
+        demod = torch.rand(b, c, device="cuda", generator=gen) + 0.5
+        noise = 0.3 * torch.randn(1, 1, h, w, device="cuda", generator=gen)
+        noise[..., ::3, :] = 0
+        bias = torch.randn(c, device="cuda", generator=gen)
+        bias[::4] = 0
+        g = torch.randn(shape, device="cuda", generator=gen)
+
+        def fwd():
+            return FA._forward(x, demod, noise, bias, None, slope, gain,
+                               want_mask=True)
+
+        y, mask = fwd()
+        check(same_bits(y, FA.bias_act_plain(x, demod, noise, bias)),
+              f"bias_act {label}: forward bit-equal to the plain chain")
+
+        def bwd():
+            return FA._grad(g, mask, x, demod, None, True, True, False, False,
+                            slope, gain)
+
+        gx, gd = bwd()[:2]
+        leaves = [t.clone().requires_grad_(True) for t in (x, demod)]
+        plain_y = FA.bias_act_plain(leaves[0], leaves[1], noise, bias)
+        want = torch.autograd.grad(plain_y, leaves, g, retain_graph=True)
+        gd_err = float(((gd - want[1]).abs()
+                        / (gain * (g * x).abs().sum((2, 3)))).max())
+        check(torch.equal(gx, want[0]) and gd_err <= 16 * 2 ** -23,
+              f"bias_act {label}: grad_x equal to the plain chain's, "
+              f"grad_demod within {gd_err:.2e} of the sum of its terms' "
+              f"magnitudes (<= 16 f32 units)")
+        y2, mask2 = fwd()
+        gx2, gd2 = bwd()[:2]
+        check(same_bits(y2, y) and torch.equal(mask2, mask)
+              and same_bits(gx2, gx) and same_bits(gd2, gd),
+              f"bias_act {label}: a second call gives the same bits")
+        n = x.numel()
+        for name, fn, kernel, io_bytes, plain in (
+                ("bias_act", fwd, "bias_act_kernel", 8 * n + n // 8,
+                 lambda: FA.bias_act_plain(x, demod, noise, bias)),
+                ("bias_act_grad", bwd, "bias_act_grad_kernel",
+                 12 * n + n // 8,
+                 lambda: torch.autograd.grad(plain_y, leaves, g,
+                                             retain_graph=True))):
+            ms = cuda_ms(fn)
+            dev = per_call_ms(device_times(fn), (kernel,))
+            plain_ms = cuda_ms(plain)
+            bms, by = bound_ms(io_bytes, 0)
+            print(f"TIME {name}: {ms:.4f} ms, device {dev:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by}, "
+                  f"{100 * bms / dev:.1f}% of it), at {label} "
+                  f"{tuple(shape)} f32", flush=True)
+        del x, g, y, y2, mask, mask2, gx, gx2, leaves, plain_y, want
+        torch.cuda.empty_cache()
+
+    b, c, h, w = BIAS_ACT_HOST_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    args = [torch.randn(b, c, h, w, device="cuda", generator=gen),
+            torch.rand(b, c, device="cuda", generator=gen) + 0.5,
+            torch.randn(1, 1, h, w, device="cuda", generator=gen),
+            torch.randn(c, device="cuda", generator=gen)]
+    args = [t.requires_grad_(True) for t in args]
+    host = {}
+    for name, fn in (("wrapper", FA.bias_act), ("plain", FA.bias_act_plain),
+                     ("wrapper", FA.bias_act), ("plain", FA.bias_act_plain)):
+        for _ in range(10):
+            fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(BIAS_ACT_HOST_CALLS):
+            fn(*args)
+        host[name] = (time.perf_counter() - t0) / BIAS_ACT_HOST_CALLS * 1e6
+        torch.cuda.synchronize()
+    print(f"HOST bias_act: {host['wrapper']:.2f} us a call with gradients "
+          f"on, the plain chain {host['plain']:.2f} us, at "
+          f"{BIAS_ACT_HOST_SHAPE} (second of two turns each)", flush=True)
 
 
 def check_raster_gradients():
@@ -2355,9 +2461,11 @@ def gan_on_the_card(root, card):
         finally:
             os.chdir(here)
     launched = dict(_cuda.LAUNCHES)
-    check(all(v == 0 for v in launched.values()),
-          f"the GAN side launched none of the port's kernels (none lies on "
-          f"it): {launched}")
+    check(all(launched[k] == 0 for k in MAIN_PATH)
+          and launched["bias_act"] > 0 and launched["bias_act_grad"] > 0,
+          f"the GAN side launched the StyleGAN2 epilogue's kernels (R1's "
+          f"and the path penalty's double backward among them) and none "
+          f"of the renderer's: {launched}")
     return {"steps_ms": times, "peak_gib": peak, "project_step_ms": step_ms,
             "launches": launched}
 
@@ -4379,6 +4487,7 @@ def main(argv):
         results = {}
         check_raster(results)
         captured = check_window(results)
+        check_bias_act()
         if kernels_only:
             torch.save([(label, g.cpu(), iy.cpu(), ix.cpu(), shape)
                         for label, g, iy, ix, shape in captured],

@@ -20,7 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gan2shape_torch.ops.fused_act import (
-    fused_leaky_relu, inverse_fused_leaky_relu,
+    bias_act, fused_leaky_relu, inverse_fused_leaky_relu,
 )
 from gan2shape_torch.ops.upfirdn2d import setup_filter, upfirdn2d
 from gan2shape_torch.distributed import gather_rows, local_slice
@@ -143,8 +143,18 @@ class ModulatedConv2d(nn.Module):
         _normal_(self.weight, generator)
 
     def forward(self, x, style):
+        out, demod = self.conv_and_demod(x, style)
+        if demod is not None:
+            out = out * demod[:, :, None, None].to(out.dtype)
+        return out
+
+    def conv_and_demod(self, x, style):
+        """The convolution of the modulated input, and the demodulation
+        factors (B, out) unapplied (None without demodulation), for
+        StyledConv's fused epilogue."""
         style = self.modulation(style)  # (B, in)
         wgt = self.weight[0] * self.scale  # (out, in, k, k)
+        demod = None
         if self.demodulate:
             # a normalisation constant: f32 under every activation dtype
             wsq = torch.sum(wgt ** 2, dim=(2, 3))  # (out, in)
@@ -157,9 +167,7 @@ class ModulatedConv2d(nn.Module):
             out = self.blur(out)
         else:
             out = F.conv2d(x, wgt, padding=self.kernel_size // 2)
-        if self.demodulate:
-            out = out * demod[:, :, None, None].to(out.dtype)
-        return out
+        return out, demod
 
 
 class NoiseInjection(nn.Module):
@@ -170,8 +178,9 @@ class NoiseInjection(nn.Module):
     def reset_parameters(self, generator=None):
         nn.init.zeros_(self.weight)
 
-    def forward(self, x, noise):
-        return x + (self.weight * noise).to(x.dtype)
+    def weighted(self, noise, dtype):
+        """w * noise in `dtype`, which StyledConv's epilogue adds."""
+        return (self.weight * noise).to(dtype)
 
 
 class FusedLeakyReLU(nn.Module):
@@ -211,7 +220,10 @@ class StyledConv(nn.Module):
         self.activate = FusedLeakyReLU(out_channel)
 
     def forward(self, x, style, noise):
-        return self.activate(self.noise(self.conv(x, style), noise))
+        """activate(noise(conv(x, style))) as one epilogue (ops.bias_act)."""
+        out, demod = self.conv.conv_and_demod(x, style)
+        return bias_act(out, demod, self.noise.weighted(noise, out.dtype),
+                        self.activate.bias)
 
 
 class ToRGB(nn.Module):

@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("window", "raster")
+SOURCES = ("window", "raster", "bias_act")
 
 # --fmad=false keeps mul and add separately rounded, so the rasterizer's key
 # arithmetic stays bit-equal to the plain version (see csrc/raster.cu)
@@ -38,10 +38,16 @@ SIGNATURES = {
         "g2s_raster_place": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P),
         "g2s_raster_tests": (_P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P),
     },
+    "bias_act": {
+        "g2s_bias_act": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                         _F, _P),
+        "g2s_bias_act_grad": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _I, _F, _F, _P),
+    },
 }
 
 LAUNCHES = {"raster_place": 0, "raster_tests": 0, "fetch2x2": 0,
-            "splat2x2": 0}
+            "splat2x2": 0, "bias_act": 0, "bias_act_grad": 0}
 
 _loaded = {}
 

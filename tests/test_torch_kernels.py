@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from gan2shape_torch.ops import _cuda
+from gan2shape_torch.ops import _cuda, fused_act
 from gan2shape_torch.ops.rasterize import (
     SENTINEL, build_winner_buffers_plain, dense_winner, dense_winner_plain,
     raster_mega, raster_place, raster_tests,
@@ -251,3 +251,211 @@ def test_raster_mega_matches_buffers_path(rng, cuda, s, b):
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert float(want[2].float().mean()) > 0.5
+
+
+# ---------------- the StyleGAN2 epilogue (csrc/bias_act.cu) ----------------
+
+# car512's generator widths a plane size (channel multiplier 2) at 64
+# images, a step-2 iteration of car512-n8; 0 is the mapping's and D's
+# linear layers (H*W = 1)
+CAR_WIDTHS = {4: 512, 8: 512, 16: 512, 32: 512, 64: 512, 128: 256, 256: 128,
+              512: 64, 0: 512}
+
+
+def _epilogue_inputs(res, dtype, device, batch=64, per_sample=False,
+                     seed=0):
+    """x, demod, weighted noise, bias of a StyledConv at `res` (a linear
+    layer's x and bias at res 0), with exact zeros in the pre-activation:
+    x, the noise and the bias all 0 at some points."""
+    g = torch.Generator().manual_seed(seed)
+    c = CAR_WIDTHS[res]
+    shape = (batch, c) + ((res, res) if res else ())
+    x = torch.randn(shape, generator=g)
+    bias = torch.randn(c, generator=g)
+    bias[::4] = 0
+    if not res:
+        x[:, ::4][::3] = 0
+        return x.to(device, dtype), None, None, bias.to(device)
+    x[:, ::4, ::3, ::2] = 0
+    demod = torch.rand(batch, c, generator=g) + 0.5
+    noise = 0.3 * torch.randn((batch if per_sample else 1, 1, res, res),
+                              generator=g)
+    noise[..., ::3, :] = 0
+    return (x.to(device, dtype), demod.to(device), noise.to(device, dtype),
+            bias.to(device))
+
+
+def _grads(fn, inputs, g):
+    leaves = [t.detach().requires_grad_(True) if t is not None else None
+              for t in inputs]
+    y = fn(*leaves)
+    want = [t for t in leaves if t is not None]
+    return y.detach(), torch.autograd.grad(y, want, g)
+
+
+def _sum_tol(terms, dims, dtype):
+    """A fixed-order sum against another order: 16 f32 units of the sum of
+    the terms' magnitudes, and in bf16 besides two units of the result's
+    own rounding to bf16 (bounded by that sum too)."""
+    mag = terms.abs().sum(dims)
+    tol = 16 * torch.finfo(torch.float32).eps * mag
+    if dtype == torch.bfloat16:
+        tol = tol + 2 * torch.finfo(torch.bfloat16).eps * mag
+    return tol
+
+
+def _assert_sums_close(grads, want, inputs, g):
+    """grad_demod, grad_noise and grad_bias (those present) within
+    `_sum_tol` of the plain chain's."""
+    x, demod, noise, _ = inputs
+    # a bound on each sum's terms: |the gradient before the demodulation|
+    # is at most gain |g|
+    pre = fused_act.SQRT2 * g.float().abs()
+    spatial = tuple(range(2, x.dim()))
+    sums = [(-1, pre, (0,) + spatial)]
+    if demod is not None:
+        sums.append((1, x.float().abs() * pre, spatial))
+    if noise is not None:
+        dims = (1,) if noise.shape[0] > 1 else (0, 1)
+        sums.append((1 + (demod is not None), pre, dims))
+    for k, terms, dims in sums:
+        got, exp = grads[k].float(), want[k].float()
+        tol = _sum_tol(terms, dims, x.dtype).reshape(exp.shape)
+        assert bool(((got - exp).abs() <= tol).all()), \
+            (k, float((got - exp).abs().max()))
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("res", sorted(CAR_WIDTHS))
+def test_bias_act_kernels_match_plain(cuda, res, dtype):
+    """Forward bit-equal to the plain chain; grad_x equal to its autograd;
+    grad_demod, grad_noise and grad_bias within a reduction-order
+    tolerance; a second call repeats every bit."""
+    inputs = _epilogue_inputs(res, dtype, cuda)
+    x, demod, noise, bias = inputs
+    g = torch.randn(x.shape, generator=torch.Generator().manual_seed(1)).to(
+        cuda, dtype)
+    _cuda.reset_launches()
+    y, grads = _grads(fused_act.bias_act, inputs, g)
+    assert _cuda.LAUNCHES["bias_act"] == 1
+    assert _cuda.LAUNCHES["bias_act_grad"] == 1
+    want_y, want = _grads(fused_act.bias_act_plain, inputs, g)
+    assert torch.equal(_bits(y), _bits(want_y))
+    assert torch.equal(grads[0], want[0])
+    _assert_sums_close(grads, want, inputs, g)
+    y2, grads2 = _grads(fused_act.bias_act, inputs, g)
+    assert torch.equal(_bits(y2), _bits(y))
+    for a, b in zip(grads2, grads):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.cuda
+def test_bias_act_per_sample_noise_and_no_demod(cuda):
+    """The GAN trainer's per-sample noise, and D's bias-only epilogue at a
+    plane size that is not a multiple of 4 (the scalar path)."""
+    inputs = _epilogue_inputs(16, torch.float32, cuda, batch=8,
+                              per_sample=True)
+    g = torch.randn(inputs[0].shape, device=cuda)
+    y, grads = _grads(fused_act.bias_act, inputs, g)
+    want_y, want = _grads(fused_act.bias_act_plain, inputs, g)
+    assert torch.equal(y, want_y) and torch.equal(grads[0], want[0])
+    _assert_sums_close(grads, want, inputs, g)
+    x = torch.randn(3, 5, 7, 9, device=cuda)
+    x[:, :, ::2] = 0
+    bias = torch.randn(5, device=cuda)
+    bias[1] = 0
+    inputs = (x, None, None, bias)
+    g = torch.randn(x.shape, device=cuda)
+    y, grads = _grads(fused_act.bias_act, inputs, g)
+    want_y, want = _grads(fused_act.bias_act_plain, inputs, g)
+    assert torch.equal(y, want_y) and torch.equal(grads[0], want[0])
+    _assert_sums_close(grads, want, inputs, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("res", [0, 8, 32])
+def test_bias_act_second_derivative_matches_plain(cuda, res):
+    """R1's and the path penalty's double backward: the gradient of a
+    function of the first gradients, through the kernels and through the
+    plain chain."""
+    inputs = _epilogue_inputs(res, torch.float64, "cpu", batch=4)
+    inputs = [t.float().to(cuda) if t is not None else None for t in inputs]
+
+    def second(fn):
+        leaves = [t.clone().requires_grad_(True) if t is not None else None
+                  for t in inputs]
+        live = [t for t in leaves if t is not None]
+        y = fn(*leaves)
+        first = torch.autograd.grad((y * y).sum(), live, create_graph=True)
+        penalty = sum((f ** 2).sum() for f in first)
+        return torch.autograd.grad(penalty, live)
+
+    got = second(fused_act.bias_act)
+    want = second(fused_act.bias_act_plain)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_bias_act_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(2, 3, 4, 4, device=cuda)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        fused_act.bias_act(x.double())
+    with pytest.raises(ValueError, match="demod"):
+        fused_act.bias_act(x, demod=torch.ones(2, 4, device=cuda))
+    with pytest.raises(ValueError, match="noise"):
+        fused_act.bias_act(x, noise=torch.ones(1, 1, 4, 5, device=cuda))
+    with pytest.raises(ValueError, match="bias"):
+        fused_act.bias_act(x, bias=torch.ones(4, device=cuda))
+
+
+@pytest.mark.cuda
+def test_bias_act_launches_once_per_layer_in_a_face128_step2(cuda):
+    """One step-2 iteration of the face-128 Trainer launches the forward
+    kernel once for every StyledConv, activated ConvLayer and fused-lrelu
+    EqualLinear call, and the backward kernel once for each such call whose
+    output takes part in the gradient."""
+    from gan2shape_torch.core.trainer import Trainer
+    from gan2shape_torch.models import stylegan2 as S
+
+    config = {"image_size": 128, "gan_size": 128, "z_dim": 512,
+              "channel_multiplier": 1, "category": "face",
+              "n_proj_samples": 16, "n_epochs_prior": 20,
+              "learning_rate": 1e-4, "prior_name": "box",
+              "rot_center_depth": 1.0, "fov": 10}
+    trainer = Trainer(config, seed=0, device=cuda)
+    gen = torch.Generator().manual_seed(0)
+    image = (torch.rand(1, 3, 128, 128, generator=gen) * 2 - 1).to(cuda)
+    latent = torch.randn(1, 512, generator=gen).to(cuda)
+    collected, _ = trainer.run_step1(image, 0)
+    calls = {"fwd": 0, "grad": 0}
+
+    def hook(module, args, out):
+        calls["fwd"] += 1
+        calls["grad"] += int(out.requires_grad)
+
+    epilogues = [m for m in trainer.model.modules()
+                 if isinstance(m, S.StyledConv)
+                 or (isinstance(m, S.ConvLayer) and isinstance(
+                     m[-1], (S.FusedLeakyReLU, S._ScaledLeakyReLU)))
+                 or (isinstance(m, S.EqualLinear)
+                     and m.activation == "fused_lrelu")]
+    handles = [m.register_forward_hook(hook) for m in epilogues]
+    try:
+        _cuda.reset_launches()
+        trainer.run_step2(image, latent, collected, 1)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    assert calls["fwd"] > 0 and calls["grad"] > 0
+    assert _cuda.LAUNCHES["bias_act"] == calls["fwd"], (_cuda.LAUNCHES, calls)
+    assert _cuda.LAUNCHES["bias_act_grad"] == calls["grad"], \
+        (_cuda.LAUNCHES, calls)

@@ -56,6 +56,151 @@ def test_fused_leaky_relu_matches_jax(rng):
         np.asarray(j_act.fused_leaky_relu(x2, b)), atol=1e-6)
 
 
+def _old_fused_leaky_relu(x, bias=None, negative_slope=0.2, scale=2 ** 0.5):
+    """ops/fused_act.py's fused_leaky_relu before the epilogue's kernels."""
+    if bias is not None:
+        shape = [1] * x.dim()
+        shape[1] = -1
+        x = x + bias.reshape(shape).to(x.dtype)
+    return scale * torch.where(x >= 0, x, x * negative_slope)
+
+
+def _old_styled_conv(self, x, style, noise):
+    out = self.conv(x, style)
+    return self.activate(out + (self.noise.weight * noise).to(out.dtype))
+
+
+def _epilogue_case(rng, shape, parts, dtype):
+    """x, demod, weighted noise, bias for `parts` ("d", "n", "b"), with the
+    pre-activation exactly 0 where x, the noise and the bias all are."""
+    b, c = shape[:2]
+    x = rng.standard_normal(shape).astype(np.float32)
+    x[:, ::3] = 0
+    bias = rng.standard_normal(c).astype(np.float32)
+    bias[::2] = 0
+    demod = noise = None
+    if "d" in parts:
+        demod = T(rng.uniform(0.5, 1.5, (b, c)).astype(np.float32))
+    if "n" in parts:
+        noise = rng.standard_normal((1, 1) + shape[2:]).astype(np.float32)
+        noise[..., ::2, :] = 0
+        noise = T(noise).to(dtype)
+    return (T(x).to(dtype), demod, noise,
+            T(bias) if "b" in parts else None)
+
+
+# StyledConv (demod, noise, bias), D's ConvLayer and the fused-lrelu
+# EqualLinear (bias only), the unbiased ConvLayer (none)
+EPILOGUE_CASES = {"styled_conv": ((3, 8, 8, 8), "dnb"),
+                  "conv_layer": ((3, 8, 5, 5), "b"),
+                  "equal_linear": ((4, 16), "b"),
+                  "scaled_lrelu": ((2, 4, 6, 6), "")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(EPILOGUE_CASES))
+def test_bias_act_plain_equals_the_old_composition(rng, case, dtype):
+    """bias_act (on the CPU: bias_act_plain) gives the bits of the chain it
+    replaced, and so does the kernels' arithmetic in torch, forward and
+    grad_x, that the autograd Functions run; the other gradients agree
+    to rounding."""
+    shape, parts = EPILOGUE_CASES[case]
+    inputs = _epilogue_case(rng, shape, parts, dtype)
+    x, demod, noise, bias = inputs
+    old = x
+    if demod is not None:
+        old = old * demod[:, :, None, None].to(old.dtype)
+    if noise is not None:
+        old = old + noise
+    old = _old_fused_leaky_relu(old, bias)
+    assert bool((x == 0).any())
+    for fn in (fused_act.bias_act, fused_act.bias_act_plain,
+               lambda *a: fused_act._BiasAct.apply(*a, None, 0.2,
+                                                   fused_act.SQRT2)):
+        leaves = [t.clone().requires_grad_(True) if t is not None else None
+                  for t in inputs]
+        y = fn(*leaves)
+        assert torch.equal(y.view(torch.int16 if dtype == torch.bfloat16
+                                  else torch.int32),
+                           old.view(torch.int16 if dtype == torch.bfloat16
+                                    else torch.int32))
+        g = torch.ones_like(y)
+        grads = torch.autograd.grad(y, [t for t in leaves if t is not None],
+                                    g)
+        if fn is fused_act.bias_act:
+            want = grads
+        else:
+            assert torch.equal(grads[0], want[0])
+            for a, b in zip(grads[1:], want[1:]):
+                torch.testing.assert_close(a, b, rtol=1e-2 if dtype ==
+                                           torch.bfloat16 else 1e-6,
+                                           atol=1e-5)
+
+
+@pytest.mark.parametrize("fn", ["plain", "functions"])
+@pytest.mark.parametrize("case", sorted(EPILOGUE_CASES))
+def test_bias_act_gradcheck_and_gradgradcheck(rng, case, fn):
+    """First and second derivatives in f64: of the plain chain, and of the
+    autograd Functions (on the CPU, the kernels' arithmetic in torch), whose
+    double backward R1 and the path-length penalty take."""
+    shape, parts = EPILOGUE_CASES[case]
+    x, demod, noise, bias = _epilogue_case(rng, shape, parts, torch.float64)
+    # away from the kink at 0, where the derivative jumps
+    x = x + torch.where(x >= 0, 0.1, -0.1)
+    inputs = [t.double().requires_grad_(True) if t is not None else None
+              for t in (x, demod, noise, bias)]
+    live = [i for i, t in enumerate(inputs) if t is not None]
+
+    def f(*args):
+        full = list(inputs)
+        for i, a in zip(live, args):
+            full[i] = a
+        if fn == "plain":
+            return fused_act.bias_act_plain(*full)
+        return fused_act._BiasAct.apply(*full, None, 0.2, fused_act.SQRT2)
+
+    args = tuple(inputs[i] for i in live)
+    assert torch.autograd.gradcheck(f, args)
+    assert torch.autograd.gradgradcheck(f, args)
+
+
+def test_generator_and_discriminator_unchanged_by_the_epilogue():
+    """G's image and D's feature taps, and their gradients to the latent and
+    the image, equal those of the modules' old composition bit for bit."""
+    from gan2shape_torch.models import stylegan2 as S
+
+    torch.manual_seed(0)
+    gen = S.Generator(16, style_dim=32, n_mlp=2, channel_multiplier=1)
+    disc = S.Discriminator(16, channel_multiplier=1)
+    for m in (gen, disc):
+        for p in m.parameters():
+            p.data.normal_()
+    noise = [torch.randn_like(n) for n in gen.noise_list()]
+    w = torch.randn(2, 32)
+    img = torch.randn(2, 3, 16, 16)
+
+    def run():
+        wl = w.clone().requires_grad_(True)
+        il = img.clone().requires_grad_(True)
+        out, feats = gen([wl], noise=noise, input_is_w=True,
+                         return_features=True)
+        score, taps = disc(il)
+        loss = out.square().sum() + sum(f.square().sum() for f in feats) \
+            + score.sum() + sum(t.sin().sum() for t in taps)
+        return [out, *feats, score, *taps,
+                *torch.autograd.grad(loss, (wl, il))]
+
+    new = run()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(S.StyledConv, "forward", _old_styled_conv)
+        mp.setattr(S, "fused_leaky_relu", _old_fused_leaky_relu)
+        old = run()
+    assert len(new) == len(old)
+    for a, b in zip(new, old):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 @pytest.mark.parametrize("up,down,pad", [
     (1, 1, (1, 1)), (2, 1, (2, 1)), (1, 2, (1, 1)),
     (1, 1, (-1, 2, 0, -1)), (2, 2, (2, 2, 2, 2))])
