@@ -2,7 +2,8 @@
 optimisation steps, with pseudo-sample synthesis and GAN inversion.
 
 GAN2Shape is an nn.Module that owns the five trainable nets (`nets`), the
-frozen StyleGAN2 generator, discriminator and LPIPS, and the renderer.
+frozen GAN's generator and discriminator (the configuration's `gan_arch`,
+`gans/`), LPIPS and the renderer.
 Randomness (lights, views) comes from an explicit torch.Generator.  The
 loop-invariant parts of step 1 and step 2 are separate methods computed once
 per block under torch.no_grad().
@@ -38,10 +39,9 @@ from .losses import (
     discriminator_feature_loss, instance_mean, photometric_loss, smooth_loss,
 )
 from .precision import resolve_device
-from . import networks
+from . import gans, networks
 from .layers import relu, reset_parameters
 from .lpips import LPIPS
-from .stylegan2 import Discriminator, Generator
 from .grid_sample import grid_sample
 from .resize import resize
 from .renderer import Renderer, get_transform_matrices
@@ -134,11 +134,8 @@ class GAN2Shape(nn.Module):
             "albedo": networks.AlbedoNet(s),
             "offset_encoder": networks.OffsetEncoder(s, cout=self.z_dim),
         })
-        self.generator = Generator(self.gan_size, style_dim=self.z_dim,
-                                   n_mlp=8,
-                                   channel_multiplier=self.channel_multiplier)
-        self.discriminator = Discriminator(
-            self.gan_size, channel_multiplier=self.channel_multiplier)
+        self.gan = gans.of(config)
+        self.generator, self.discriminator = self.gan.build(config)
         # the perceptual backbone: 'vgg' (the reference's), 'alex' or
         # 'squeeze'
         self.lpips = LPIPS(backbone=config.get("lpips_net", "vgg"))
@@ -177,12 +174,10 @@ class GAN2Shape(nn.Module):
 
     def init_frozen(self, generator):
         """Seeded random frozen GAN + LPIPS (real runs load converted
-        checkpoints instead) and the generator's fixed noise."""
+        checkpoints instead) and the generator's frozen random buffers."""
         for m in (self.generator, self.discriminator, self.lpips):
             reset_parameters(m, generator)
-        for buf, n in zip(self.generator.noise_list(),
-                          self.generator.make_noise(generator)):
-            buf.copy_(n)
+        self.gan.draw_buffers(self.generator, generator, "cpu")
         if self.truncation < 1:
             self.set_mean_latent()
 

@@ -1,13 +1,18 @@
-"""The yardstick's arithmetic: the H100's published peaks, the least bytes
-each of the port's kernels must move, the shapes of their calls (recorded
-by wrapping the port's kernel wrappers), and the FLOPs of one iteration of
-each step (torch.utils.flop_counter)."""
+"""The yardstick's arithmetic: the H100's published peaks, the port's
+kernels' calls (recorded by wrapping what the port calls them through, as
+the roofline registry `kernels/` lists it, each with the least bytes it
+must move), their share of the byte roofline, and the FLOPs of one
+iteration of each step (torch.utils.flop_counter)."""
 
-import math
+import importlib
+import importlib.util
 import re
 from contextlib import contextmanager
+from pathlib import Path
 
 import torch
+
+from benchmark import trace as tracing
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 bandwidth and the float32
 # (outside the tensor cores), TF32 and bfloat16 tensor-core rates
@@ -26,84 +31,82 @@ def peak_flops(act_dtype):
     return PEAK_FLOPS["float32"]
 
 
-def _padded(h, w, window):
-    pad = window + 1
-    return (h + 2 * pad) * (w + 2 * pad)
+KERNEL_DIR = Path(__file__).resolve().parent / "kernels"
+_entries = {}
 
 
-def raster_place_bytes(vx, vy, vz, window, near, far):
-    """Three (B, H, W) f32 vertex planes read; the (2, B, 2, 2, 10, HP, WP)
-    int16 payloads written."""
-    b, h, w = vx.shape
-    return 3 * 4 * b * h * w + 2 * b * 4 * 10 * _padded(h, w, window) * 2
+def kernel_entries(here=KERNEL_DIR):
+    """{entry: module} of the roofline registry (`kernels/<entry>.py`:
+    MODULE, CALLS, KERNELS, METRIC), found by listing the folder."""
+    key = str(here)
+    if key not in _entries:
+        found = {}
+        for path in sorted(Path(here).glob("*.py")):
+            if path.stem.startswith("_"):
+                continue
+            spec = importlib.util.spec_from_file_location(
+                "benchmark_kernel_" + path.stem.replace(".", "_"), path)
+            module = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(module)
+            found[path.stem] = module
+        _entries[key] = found
+    return _entries[key]
 
 
-def raster_tests_bytes(bufs, h, w, window, near, far):
-    """The int16 payloads read; the (B, H, W) int32 keys written."""
-    return bufs.numel() * 2 + bufs.shape[1] * h * w * 4
-
-
-def fetch2x2_bytes(src, iy, ix):
-    """The source's taps read (at most the whole source), the int32 window
-    starts read, the (B, 4C, P) f32 windows written."""
-    b, c, h, w = src.shape
-    p = iy.shape[1]
-    return (min(h * w, 4 * p) * b * c * 4 + 2 * b * p * 4
-            + b * 4 * c * p * 4)
-
-
-def splat2x2_bytes(g, iy, ix, shape):
-    """The (B, 4C, P) f32 addends and the starts read, the (B, C, H, W) f32
-    sums written."""
-    return g.numel() * 4 + 2 * iy.numel() * 4 + math.prod(shape) * 4
-
-
-# wrapper -> (the module attribute the port calls it through, its bytes,
-# the kernels one call launches)
-KERNELS = {
-    "raster_place": ("gan2shape_torch.ops.rasterize", raster_place_bytes,
-                     ("place_collide_kernel", "place_write_kernel")),
-    "raster_tests": ("gan2shape_torch.ops.rasterize", raster_tests_bytes,
-                     ("tests_kernel",)),
-    "fetch2x2": ("gan2shape_torch.ops.gather_window", fetch2x2_bytes,
-                 ("fetch2x2_kernel",)),
-    "splat2x2": ("gan2shape_torch.ops.gather_window", splat2x2_bytes,
-                 ("splat_amax_kernel", "splat2x2_kernel",
-                  "splat_convert_kernel")),
-}
-KERNEL_NAME = re.compile(r"\b(" + "|".join(
-    k for _, _, ks in KERNELS.values() for k in ks) + r")\b")
-
-
-def is_port_kernel(name):
-    return KERNEL_NAME.search(name) is not None
+def is_port_kernel(name, metric=None, here=KERNEL_DIR):
+    """Whether a device activity is one of the registry's kernels (of the
+    entries of `metric`, where given)."""
+    names = [k for e in kernel_entries(here).values()
+             if metric is None or e.METRIC == metric for k in e.KERNELS]
+    return bool(names) and re.search(r"\b(" + "|".join(names) + r")\b",
+                                     name) is not None
 
 
 @contextmanager
-def recording_calls(calls):
-    """Inside the block each call of a port kernel wrapper on CUDA tensors
-    appends (wrapper, least seconds at HBM_BYTES_PER_S) to `calls`."""
-    import importlib
-
+def recording_calls(calls, here=KERNEL_DIR):
+    """Inside the block each call, on CUDA tensors, of what a registry
+    entry records appends (entry, least seconds at HBM_BYTES_PER_S) to
+    `calls`."""
     saved = []
 
-    def wrap(name, real, nbytes):
-        def call(*args):
+    def wrap(entry, real, nbytes):
+        def call(*args, **kwargs):
             if args[0].is_cuda:
-                calls.append((name, nbytes(*args) / HBM_BYTES_PER_S))
-            return real(*args)
+                calls.append((entry, nbytes(*args, **kwargs)
+                              / HBM_BYTES_PER_S))
+            return real(*args, **kwargs)
         return call
 
-    for name, (module, nbytes, _) in KERNELS.items():
-        mod = importlib.import_module(module)
-        real = getattr(mod, name)
-        saved.append((mod, name, real))
-        setattr(mod, name, wrap(name, real, nbytes))
     try:
+        for entry, e in kernel_entries(here).items():
+            mod = importlib.import_module(e.MODULE)
+            for attr, nbytes in e.CALLS.items():
+                real = getattr(mod, attr)
+                saved.append((mod, attr, real))
+                setattr(mod, attr, wrap(entry, real, nbytes))
         yield calls
     finally:
-        for mod, name, real in saved:
-            setattr(mod, name, real)
+        for mod, attr, real in reversed(saved):
+            setattr(mod, attr, real)
+
+
+def roofline_pct(run, metric, here=KERNEL_DIR):
+    """The share of their byte roofline of the registry's kernels of
+    `metric` in the profiled stage: the least seconds of their recorded
+    calls over their kernels' device time.  None where nothing was
+    called or launched."""
+    if run.trace is None:
+        return None
+    entries = kernel_entries(here)
+    least = sum(t for entry, t in run.window.kernel_calls
+                if entries[entry].METRIC == metric)
+    if not least:
+        return None
+    lo, hi = tracing.stage(run.trace)
+    device_s = sum(e - s for s, e, n in
+                   tracing.within(run.trace["activities"], lo, hi)
+                   if is_port_kernel(n, metric, here)) / 1e6
+    return 100.0 * least / device_s if device_s else None
 
 
 def _conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride,

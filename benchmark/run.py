@@ -243,6 +243,16 @@ def main(argv=None, device=None, cell=None, plant=None):
     print(f"seconds: set-up {json.dumps(marks)}, reference "
           f"{reference_s}", file=sys.stderr)
     print(f"host over the window {json.dumps(host)}", file=sys.stderr)
+    if trace is not None:
+        calls = {}
+        for entry, least in win.kernel_calls:
+            calls.setdefault(entry, [0, 0.0])
+            calls[entry][0] += 1
+            calls[entry][1] += least
+        print(f"kernel calls (entry: calls, least s) {json.dumps(calls)}; "
+              f"launch times found for {len(trace['launched'])} of "
+              f"{len(trace['activities'])} device activities",
+              file=sys.stderr)
     print("readings not compared " + json.dumps(
         {k: _finite(v) for k, v in readings.items()
          if k not in cell.limits}), file=sys.stderr)

@@ -3,7 +3,12 @@ configuration (`configs/<config>.json`), its traffic mix
 (`traffic/<traffic>.json`), the limits of its correctness check
 (`limits/<cell>.json`) and one reader per metric (`metrics/<name>.py`).
 A new cell, configuration, mix or metric is a new file and a new entry in
-BENCHMARK.json; no code here changes."""
+BENCHMARK.json; no code here changes.  Two more kinds of file are found
+by name elsewhere: the reference's GAN that a configuration's `gan_arch`
+names (`reference/gans/<gan_arch>.py`, absent: stylegan2), and the
+roofline registry's entries (`kernels/<entry>.py`: what the port calls a
+kernel through, its bytes, its kernels and its metric; `roofline.py`
+lists the folder)."""
 
 import importlib.util
 import json

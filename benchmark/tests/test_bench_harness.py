@@ -135,6 +135,33 @@ def test_a_broken_program_comes_out_incorrect(plant, n_proj, n):
                for v in result["checks"].values())
 
 
+@pytest.mark.parametrize("plant,n_proj", [(_unchanged_state, 1),
+                                          (_half_batch, 2),
+                                          (_half_batch_step3, 2)],
+                         ids=["state_unchanged", "half_batch",
+                              "half_batch_step3"])
+def test_a_broken_program_comes_out_incorrect_at_car512_seq(plant, n_proj):
+    """car512-seq's limits and the car configuration (its category and
+    prior) at the tiny size."""
+    cell = tiny_cell("car512-seq")
+    cell.config["n_proj_samples"] = n_proj
+    code, result, _ = _run(cell, plant=plant, seconds=1,
+                           workload="car512-seq")
+    assert code == 0
+    assert result["correct"] is False
+    assert any(v["value"] is None or v["value"] > v["limit"]
+               for v in result["checks"].values())
+
+
+def test_car512_seq_comes_out_correct_unbroken():
+    """The same tiny car512-seq run with nothing broken is correct: the
+    faults above fail for what they break."""
+    cell = tiny_cell("car512-seq", cut=200)  # step 3 within the window
+    cell.config["n_proj_samples"] = 2
+    code, result, _ = _run(cell, seconds=30, workload="car512-seq")
+    assert code == 0 and result["correct"] is True, result["checks"]
+
+
 def test_the_command_refuses_without_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a card is present")
@@ -284,16 +311,15 @@ def test_the_reference_agrees_with_the_instance_parallel_port():
     assert max(worst.values()) <= 0.1, worst
 
 
-@pytest.mark.cuda
-def test_the_control_fails_on_the_card():
+def _the_control_fails(name):
     """The reference with TF32 on (the precision below the configured
     exact f32) against the reference at exact f32, on the program's first
-    steps of face128-seq at its own size (12 GiB on the card), seed 301 of
-    the calibration: at least one number past the cell's limit."""
+    steps of cell `name` at its own size, seed 301 of the calibration: at
+    least one number past the cell's limit."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     from benchmark.system import System
-    cell = spec.load_cell("face128-seq")
+    cell = spec.load_cell(name)
     system = System(cell, 301, "cuda")
     program, images, latents = check.first_steps(
         system, 3, torch.cuda.synchronize)
@@ -304,6 +330,18 @@ def test_the_control_fails_on_the_card():
                                     "cuda", program, tf32=True)
     worst = check.gaps(tf32, f32)
     assert any(worst[k] > v for k, v in cell.limits.items()), worst
+
+
+@pytest.mark.cuda
+def test_the_control_fails_on_the_card():
+    """face128-seq (12 GiB on the card)."""
+    _the_control_fails("face128-seq")
+
+
+@pytest.mark.cuda
+def test_the_control_fails_on_the_card_at_car512_seq():
+    """car512-seq: the 512-px GAN one image at a time (10 GiB)."""
+    _the_control_fails("car512-seq")
 
 
 def test_stacked_instances_count_flops_once_each():

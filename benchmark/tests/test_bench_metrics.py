@@ -149,8 +149,12 @@ def test_kernel_roofline_share():
     run = SimpleNamespace(trace=t, window=w)
     # tests_kernel 10 us + fetch2x2_kernel 10 us of device time
     assert reader("kernels_roofline")(run) == pytest.approx(37.5)
+    assert reader("bias_act_roofline")(run) is None
     assert not roofline.is_port_kernel("cudnn_conv")
     assert roofline.is_port_kernel("void splat2x2_kernel<8>(float*)")
+    assert roofline.is_port_kernel("void bias_act_kernel<float>(float*)")
+    assert not roofline.is_port_kernel("void bias_act_kernel<float>()",
+                                       "kernels_roofline")
 
 
 def test_the_peak_is_chosen_from_the_flags():
@@ -188,21 +192,28 @@ def test_iter_ms_leaves_out_the_profiled_stage():
 
 
 def test_kernel_bytes():
+    """The raster and window entries of the roofline registry count the
+    bytes the kernel table's bounds count."""
+    entries = roofline.kernel_entries()
+    place = entries["raster_place"].CALLS["raster_place"]
+    tests = entries["raster_tests"].CALLS["raster_tests"]
+    fetch = entries["fetch2x2"].CALLS["fetch2x2"]
+    splat = entries["splat2x2"].CALLS["splat2x2"]
     vx = torch.zeros(2, 8, 8)
-    assert roofline.raster_place_bytes(vx, vx, vx, 3, 0.3, 1.3) == \
+    assert place(vx, vx, vx, 3, 0.3, 1.3) == \
         3 * 4 * 128 + 2 * 2 * 4 * 10 * 16 * 16 * 2
     bufs = torch.zeros(2, 2, 2, 2, 10, 16, 16, dtype=torch.int16)
-    assert roofline.raster_tests_bytes(bufs, 8, 8, 3, 0.3, 1.3) == \
+    assert tests(bufs, 8, 8, 3, 0.3, 1.3) == \
         bufs.numel() * 2 + 2 * 64 * 4
     src = torch.zeros(2, 3, 8, 8)
     iy = torch.zeros(2, 64, dtype=torch.int32)
-    assert roofline.fetch2x2_bytes(src, iy, iy) == \
+    assert fetch(src, iy, iy) == \
         src.numel() * 4 + 2 * 128 * 4 + 2 * 12 * 64 * 4
     small = torch.zeros(2, 4, dtype=torch.int32)
-    assert roofline.fetch2x2_bytes(src, small, small) == \
+    assert fetch(src, small, small) == \
         16 * 6 * 4 + 2 * 8 * 4 + 2 * 12 * 4 * 4
     g = torch.zeros(2, 12, 64)
-    assert roofline.splat2x2_bytes(g, iy, iy, (2, 3, 8, 8)) == \
+    assert splat(g, iy, iy, (2, 3, 8, 8)) == \
         g.numel() * 4 + 2 * 128 * 4 + 384 * 4
 
 

@@ -1,12 +1,15 @@
 """Reading a torch.profiler trace (its Chrome-trace JSON export): the
 device activities (kernels, memsets, copies), the host annotations the
-harness puts around its blocks (`g2s.<term>`), busy time as the union of
-overlapping intervals (cuDNN runs kernels on side streams), and the idle
-gaps labelled with the harness term that was open on the host."""
+harness puts around its blocks (`g2s.<term>`), the host time at which
+each activity was launched (its `correlation` with the CUDA runtime or
+driver call that launched it), busy time as the union of overlapping
+intervals (cuDNN runs kernels on side streams), and the idle gaps
+labelled with the harness term that was open on the host."""
 
 import json
 
 DEVICE = ("kernel", "gpu_memset", "gpu_memcpy")
+LAUNCH = ("cuda_runtime", "cuda_driver")
 ANNOTATION = "user_annotation"
 PREFIX = "g2s."
 STAGE = PREFIX + "stage"
@@ -14,7 +17,9 @@ STAGE = PREFIX + "stage"
 
 def load(path):
     """{"activities": [(start, end, name)], "annotations": [(start, end,
-    name)]} in microseconds, sorted by start."""
+    name)], "launched": [(host time of the launch, start, end, name)]} in
+    microseconds, sorted; "launched" holds the activities whose launch the
+    trace records, from whichever host thread it came."""
     with open(path) as f:
         events = json.load(f)
     if isinstance(events, dict):
@@ -22,8 +27,13 @@ def load(path):
     return parse(events)
 
 
+def _correlation(e):
+    args = e.get("args")
+    return args.get("correlation") if isinstance(args, dict) else None
+
+
 def parse(events):
-    acts, notes = [], []
+    acts, notes, calls, corr = [], [], {}, []
     for e in events:
         if e.get("ph") != "X" or "ts" not in e:
             continue
@@ -32,9 +42,14 @@ def parse(events):
         cat = e.get("cat", "")
         if cat in DEVICE:
             acts.append(span)
+            corr.append((_correlation(e), span))
+        elif cat in LAUNCH and _correlation(e) is not None:
+            calls[_correlation(e)] = start
         elif cat == ANNOTATION and span[2].startswith(PREFIX):
             notes.append(span)
-    return {"activities": sorted(acts), "annotations": sorted(notes)}
+    launched = [(calls[c], *span) for c, span in corr if c in calls]
+    return {"activities": sorted(acts), "annotations": sorted(notes),
+            "launched": sorted(launched)}
 
 
 def within(spans, lo, hi):

@@ -2,8 +2,9 @@
 device, and handed alike to the program and to the reference.
 
 Each piece has its own generator on the device, seeded from (seed, piece):
-the frozen nets (StyleGAN2 generator and discriminator, LPIPS-VGG and the
-generator's noise), the five trainable nets of each instance, and the
+the frozen nets (the configuration's GAN, `reference/gans/`, with its
+frozen random buffers, and LPIPS-VGG), the five trainable nets of each
+instance, and the
 images and latents of each instance of the run.  So the reference remakes
 any one piece without the others.  A piece's tensors are drawn in two large
 calls (one uniform, one normal), by the initialisation laws of the
@@ -52,12 +53,11 @@ def _draw(modules, gen):
 
 @torch.no_grad()
 def make_frozen(model, seed):
-    """The reference model's frozen nets and the generator's noise."""
+    """The reference model's frozen nets, then the GAN generator's frozen
+    random buffers (`draw_buffers` of its `reference/gans/` file)."""
     gen = generator(seed, model.device, FROZEN)
     _draw((model.generator, model.discriminator, model.lpips), gen)
-    for buf, n in zip(model.generator.noise_list(),
-                      model.generator.make_noise(gen, model.device)):
-        buf.copy_(n)
+    model.gan.draw_buffers(model.generator, gen, model.device)
 
 
 def make_nets(model, seed, instance):
